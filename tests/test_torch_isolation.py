@@ -1,0 +1,117 @@
+"""Guards on the PyTorch port as a package of its own: it imports neither JAX
+nor the JAX package, its entry points refuse to fall back to the CPU when no
+GPU is present, and it commits only small text files."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "katacoffee_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "katacoffee_tpu")
+
+
+def _port_sources():
+    files = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts)
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_imports(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_forbidden_match_is_exact():
+    assert _forbidden("katacoffee_tpu") and _forbidden("katacoffee_tpu.search")
+    assert _forbidden("jax.numpy") and not _forbidden("katacoffee_tpu_torch.search")
+
+
+def test_importing_the_port_loads_no_reference_package():
+    modules = sorted(
+        "katacoffee_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py")
+        if p.name != "__init__.py" and "_build" not in p.parts
+    )
+    code = (
+        "import sys, importlib\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'katacoffee_tpu' or m.startswith('katacoffee_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_refuse_the_cpu_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from katacoffee_tpu_torch.command.benchmark import benchmark_search
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.game.board import GameConfig, init_state
+    from katacoffee_tpu_torch.search.mcts import run_search, uniform_eval_fn
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    cfg = GameConfig()
+    calls = []
+    ev = uniform_eval_fn(cfg)
+
+    def counting_eval(states):
+        calls.append(states.board.device)
+        return ev(states)
+
+    roots = init_state(cfg, 2, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_search(cfg, SearchParams(), counting_eval, roots, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmark_search(cfg, SearchParams(), counting_eval, batch_sizes=(2,), num_visits=4, log=calls.append)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(cfg, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_exported_model(str(ROOT / "tests/goldens/tinynet"))
+    assert calls == []
+
+
+def _committable_files():
+    try:
+        out = subprocess.run(
+            ["git", "ls-files", "--cached", "--others", "--exclude-standard", "katacoffee_tpu_torch"],
+            cwd=ROOT, capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.split()
+        return [ROOT / f for f in out]
+    except (OSError, subprocess.CalledProcessError):
+        # not a git checkout: everything but the build and bytecode caches
+        return [
+            p for p in PORT.rglob("*")
+            if p.is_file() and "_build" not in p.parts and "__pycache__" not in p.parts
+        ]
+
+
+def test_port_commits_only_small_text_files():
+    files = _committable_files()
+    assert files
+    for f in files:
+        if not f.exists():
+            continue  # deleted in the working tree
+        assert f.suffix != ".so", f
+        assert f.stat().st_size <= 100 * 1024, f
+        assert b"\0" not in f.read_bytes(), f
