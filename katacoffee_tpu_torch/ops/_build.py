@@ -18,9 +18,12 @@ import subprocess
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# --fmad=false: each float multiply and add rounds on its own, as in the
+# torch ops a kernel is held to bit for bit. -Xptxas=-v: the register and
+# spill counts go to the build log.
 NVCC_FLAGS = (
-    "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
+    "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 
@@ -39,6 +42,13 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 
+def build_log(source: Path) -> str:
+    """The compiler's output from building `source`'s library ("" if it
+    has not been built here)."""
+    log = library_path(source).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(source: Path) -> ctypes.CDLL:
     """Compile `source` unless its library exists, then load it. Raises
@@ -54,5 +64,6 @@ def load_library(source: Path) -> ctypes.CDLL:
                 f"nvcc failed ({proc.returncode}) for {source.name}:\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
             )
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)
     return ctypes.CDLL(str(lib))

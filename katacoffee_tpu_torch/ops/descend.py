@@ -1,0 +1,165 @@
+"""Fused interior descent: one CUDA launch walks every game from the node
+after the root level down to its leaf.
+
+The port of the interior levels of `_simulate_once` (the while_loop `body`
+at `katacoffee_tpu/search/mcts.py:1267`) together with the child-stats
+gather they run per level (the Pallas kernel `_gather_kernel`,
+`katacoffee_tpu/ops/gather.py:39`). The plain version is
+`katacoffee_tpu_torch.search.mcts._descend_interior_plain`, and
+`mcts._descend_interior` chooses between the two by device: CPU tensors take
+the plain version, CUDA tensors come here. `descend_interior` launches the
+kernel in `descend_kernel.cu` (built at first use by `_build.py`) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from katacoffee_tpu_torch.ops._build import load_library
+
+SOURCE = Path(__file__).resolve().with_name("descend_kernel.cu")
+# Two candidate lanes per thread of a warp; from 64 lanes on, torch's CUDA
+# row sum, whose order the kernel follows, changes its block width.
+MAX_LANES = 63
+EPS = 1e-8  # search/mcts.py _EPS
+
+# torch.pow(tensor, exponent) takes its own path for these exponents
+# (Pow.cpp: 0 fills ones, 1 copies; the CUDA kernel: 2, 3 and -2 multiply,
+# 0.5, -0.5 and -1 call sqrt, rsqrt and reciprocal); the kernel's codes.
+_POW_MODES = {0.0: 1, 1.0: 2, 2.0: 3, 3.0: 4, 0.5: 5, -0.5: 6, -1.0: 7, -2.0: 8}
+_FPU_PARENT, _FPU_VISITED_POLICY, _FPU_PARENT_WEIGHT = range(3)
+
+
+def select_constants(sp) -> tuple[np.ndarray, np.ndarray]:
+    """The SearchParams constants of `_selection_compact` as the kernel's
+    `Select` struct: float32 values, each rounded the way torch rounds a
+    Python scalar against a float32 tensor (a constant computed in Python,
+    such as the prior's square, is rounded once), and a division by a Python
+    scalar as torch's CUDA multiply by the float32 reciprocal."""
+    f32 = np.float32
+    if sp.fpuParentWeightByVisitedPolicy:
+        fpu_mode = _FPU_VISITED_POLICY
+    elif sp.fpuParentWeight > 0.0:
+        fpu_mode = _FPU_PARENT_WEIGHT
+    else:
+        fpu_mode = _FPU_PARENT
+    floats = np.array([
+        sp.cpuctExploration,
+        sp.cpuctExplorationLog,
+        sp.cpuctExplorationBase,
+        f32(1.0) / f32(sp.cpuctExplorationBase),
+        sp.cpuctUtilityStdevScale,
+        sp.cpuctUtilityStdevPrior,
+        f32(1.0) / f32(sp.cpuctUtilityStdevPrior),
+        sp.cpuctUtilityStdevPrior**2,
+        sp.cpuctUtilityStdevPriorWeight,
+        sp.fpuReductionMax,
+        sp.fpuLossProp,
+        -sp.winLossUtilityFactor,
+        sp.fpuParentWeight,
+        1.0 - sp.fpuParentWeight,
+        sp.fpuParentWeightByVisitedPolicyPow,
+        EPS,
+    ], dtype=np.float32)
+    ints = np.array([
+        int(sp.cpuctUtilityStdevScale != 0.0),
+        fpu_mode,
+        _POW_MODES.get(float(sp.fpuParentWeightByVisitedPolicyPow), 0),
+    ], dtype=np.int32)
+    return floats, ints
+
+
+@functools.lru_cache(maxsize=None)
+def load_kernel() -> ctypes.CDLL:
+    """Build (once) and load the CUDA kernel's library."""
+    lib = load_library(SOURCE)
+    lib.kc_descend_interior.argtypes = (
+        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+    )
+    lib.kc_descend_interior.restype = ctypes.c_int
+    lib.kc_descend_error_string.argtypes = [ctypes.c_int]
+    lib.kc_descend_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"descend_interior: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"descend_interior: {name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"descend_interior: {name} must be contiguous")
+
+
+def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, acts, scratch):
+    """One launch of the fused interior descent; returns (leaf, leaf_depth)
+    [B] int64 and updates `tree.edge_visits`, `path`, `acts` and `scratch`
+    in place, as `mcts._descend_interior_plain` does.
+
+    `cand` is the int32 candidate table [area + 1, 5, C]; `tree` a search
+    Tree, `scratch` its LevelScratch [B, D, C, ...]. Every tensor must lie on
+    one CUDA device, contiguous, with the Tree's dtypes; anything else, or a
+    kernel that fails to build or launch, raises. Counted in
+    `descend_interior.launches`."""
+    B, N, A = tree.children.shape
+    D, C = scratch.child_c.shape[1:]
+    if not 1 <= C <= MAX_LANES:
+        raise ValueError(f"descend_interior: {C} candidate lanes, the kernel takes 1..{MAX_LANES}")
+    area = cand.shape[0] - 1
+    args = [
+        ("last_spot", tree.states.last_spot, torch.int64, (B, N)),
+        ("last_dir", tree.states.last_dir, torch.int64, (B, N)),
+        ("is_terminal", tree.is_terminal, torch.bool, (B, N)),
+        ("cand", cand, torch.int32, (area + 1, 5, C)),
+        ("children", tree.children, torch.int32, (B, N, A)),
+        ("edge_visits", tree.edge_visits, torch.int32, (B, N, A)),
+        ("prior", tree.prior, torch.float32, (B, N, A)),
+        ("stats", tree.stats, torch.float32, (B, N, 8)),
+        ("self_stats", tree.self_stats, torch.float32, (B, N, 4)),
+        ("node", node, torch.int64, (B,)),
+        ("depth", depth, torch.int64, (B,)),
+        ("active", active, torch.bool, (B,)),
+        ("path", path, torch.int64, (B, D + 1)),
+        ("acts", acts, torch.int64, (B, D + 1)),
+        ("cs_raw", scratch.cs_raw, torch.float32, (B, D, C, 8)),
+        ("prior_c", scratch.prior_c, torch.float32, (B, D, C)),
+        ("child_c", scratch.child_c, torch.int32, (B, D, C)),
+        ("ev_c", scratch.ev_c, torch.float32, (B, D, C)),
+    ]
+    for name, t, dtype, shape in args:
+        _check(name, t, dtype, shape)
+    dev = tree.stats.device
+    if dev.type != "cuda" or any(t.device != dev for _, t, _, _ in args):
+        raise ValueError(
+            "descend_interior: needs every tensor on one CUDA device, got "
+            + ", ".join(f"{name} on {t.device}" for name, t, _, _ in args)
+        )
+    if tree.stats.data_ptr() % 16 or scratch.cs_raw.data_ptr() % 16:
+        raise ValueError("descend_interior: stats and cs_raw must be 16-byte aligned")
+    if dev.index != torch.cuda.current_device():
+        # the kernel launches on the current device
+        with torch.cuda.device(dev):
+            return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
+    leaf = torch.empty((B,), dtype=torch.int64, device=dev)
+    leaf_depth = torch.empty((B,), dtype=torch.int64, device=dev)
+    floats, ints = select_constants(sp)
+    lib = load_kernel()
+    err = lib.kc_descend_interior(
+        *(t.data_ptr() for _, t, _, _ in args),
+        leaf.data_ptr(), leaf_depth.data_ptr(),
+        B, N, A, C, D, area,
+        floats.ctypes.data, ints.ctypes.data,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"descend_interior kernel launch failed: {lib.kc_descend_error_string(err).decode()}")
+    descend_interior.launches += 1
+    return leaf, leaf_depth
+
+
+descend_interior.launches = 0

@@ -3,14 +3,18 @@
 The port of `katacoffee_tpu/search/mcts.py` for a fresh tree and the default
 `SearchParams()` profile: B independent searches advance in lockstep, one
 playout per game per simulation, so the NN forward always sees a full [B]
-batch. Node statistics are packed in `Tree.stats [B, N, 8]`; every
-child-stats row gather goes through `ops.gather.gather_rows`, which is the
-hand-written CUDA kernel on the card.
+batch. Node statistics are packed in `Tree.stats [B, N, 8]`. On the card
+two hand-written CUDA kernels carry the search: the interior levels of each
+playout's descent are one launch of `ops.descend.descend_interior` (the
+child-stats gather fused in), and the root's full-width child-stats gather
+and the readouts go through `ops.gather.gather_rows`. CPU tensors take the
+plain torch versions.
 
 What the slice implements (file:line cites are the JAX package's):
   * PUCT selection with FPU, the cpuct log term, the parent-utility stdev
     factor and root forced playouts (`_select_action`, :1030), and its
-    compact-lane form for interior nodes (`_select_action_compact`, :712);
+    compact-lane form for interior nodes (`_selection_compact`, from
+    `_select_action_compact`, :712);
   * value aggregation with value-based downweighting (`_recompute_node`,
     :2205);
   * one playout (`_simulate_once`, :1167): descent (the root level at full
@@ -50,6 +54,7 @@ from katacoffee_tpu_torch.game.board import (
     step,
 )
 from katacoffee_tpu_torch.nn.features import extract_features
+from katacoffee_tpu_torch.ops.descend import descend_interior
 from katacoffee_tpu_torch.ops.gather import gather_rows
 from katacoffee_tpu_torch.search.params import SearchParams
 
@@ -268,6 +273,12 @@ def _cand_table(cfg: GameConfig, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_cand_table_np(cfg.x_size, cfg.y_size, cfg.win_len)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _cand_table_i32(cfg: GameConfig, device: torch.device) -> torch.Tensor:
+    """The candidate table as the descent kernel reads it."""
+    return _cand_table(cfg, device).to(torch.int32).contiguous()
+
+
 def _cand_lanes(cfg: GameConfig, states: GameState, bidx, node):
     """(cand [B, C] flat actions with -1 pad, valid [B, C]) for the nodes'
     last-move lines."""
@@ -322,9 +333,9 @@ def _fpu_parent_utility(sp: SearchParams, node_stats, self_u, mass_visited) -> t
     return parent_u
 
 
-def _select_action_compact(sp: SearchParams, prior, cs: dict, node_stats, self_u) -> torch.Tensor:
-    """PUCT selection over compact lanes with the non-root semantics of
-    _select_action. Returns the chosen LANE [B]."""
+def _selection_compact(sp: SearchParams, prior, cs: dict, node_stats, self_u) -> torch.Tensor:
+    """PUCT scores [B, C] over compact lanes with the non-root semantics of
+    _select_action, -inf on illegal lanes; the chosen lane is their argmax."""
     child_w = cs["w"]
     has_child = cs["live"]
     explore_scaling = _explore_scaling(sp, child_w.sum(-1), node_stats)
@@ -335,8 +346,7 @@ def _select_action_compact(sp: SearchParams, prior, cs: dict, node_stats, self_u
     fpu = fpu + (-sp.winLossUtilityFactor - fpu) * sp.fpuLossProp
     q = torch.where(has_child, cs["u"], fpu[:, None])
     selection = explore_scaling[:, None] * legal_prior / (1.0 + child_w) + q
-    selection = torch.where(prior < 0, -math.inf, selection)
-    return torch.argmax(selection, dim=-1)
+    return torch.where(prior < 0, -math.inf, selection)
 
 
 def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None) -> torch.Tensor:
@@ -444,23 +454,62 @@ def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameSta
 # ---------------------------------------------------------------------------
 
 
-def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth: int,
-                   root_cs: torch.Tensor) -> torch.Tensor:
-    """One playout per game, updating `tree` in place. `root_cs` [B, A, 8]
-    is the root's child-stats gather carried across the simulations of one
-    search: only the root child this playout went through changes, so it is
-    patched here (in place) and returned."""
-    B, N, A = tree.prior.shape
-    dev = tree.stats.device
-    bidx = torch.arange(B, device=dev)
+class LevelScratch(NamedTuple):
+    """The compact lanes of each interior level of one playout, kept for its
+    backup: slot d-1 holds the lanes of the path's node at depth d (for one
+    level, the same fields without the D axis). Allocated once per search by
+    `make_level_scratch`. A slot that a game did not reach in this playout
+    holds an earlier playout's lanes or the initial fill, so every node index
+    the backup derives from it is a real node or -1."""
+
+    cs_raw: torch.Tensor  # [B, D, C, 8] f32 the children's raw stat rows, 0 if missing
+    prior_c: torch.Tensor  # [B, D, C] f32 raw prior, -1 on padding lanes
+    child_c: torch.Tensor  # [B, D, C] int32 child index, -1 missing
+    ev_c: torch.Tensor  # [B, D, C] f32 edge visits
+
+
+def make_level_scratch(cfg: GameConfig, batch: int, max_depth: int, device) -> LevelScratch:
+    """Scratch for `max_depth` levels: child_c -1, the rest 0 (the
+    counterpart of the JAX package's `make_sim_scratch`)."""
     C = 4 * max(cfg.x_size, cfg.y_size)
+    shape = (batch, max_depth, C)
+    return LevelScratch(
+        cs_raw=torch.zeros(shape + (NUM_STATS,), dtype=torch.float32, device=device),
+        prior_c=torch.zeros(shape, dtype=torch.float32, device=device),
+        child_c=torch.full(shape, -1, dtype=torch.int32, device=device),
+        ev_c=torch.zeros(shape, dtype=torch.float32, device=device),
+    )
+
+
+def _interior_level(cfg, sp: SearchParams, tree: Tree, bidx, node):
+    """One interior level for nodes [B] (`bidx` = arange(B)): the candidate
+    actions [B, C], the node's compact lanes as a LevelScratch of [B, C]
+    fields, and the PUCT scores [B, C]."""
+    cand, valid = _cand_lanes(cfg, tree.states, bidx, node)
+    child_c = _compact_row(tree.children[bidx, node], cand, valid, -1)
+    ev_c = _compact_row(tree.edge_visits[bidx, node], cand, valid, 0).to(torch.float32)
+    prior_c = _compact_row(tree.prior[bidx, node], cand, valid, -1.0)
+    cs_raw = gather_rows(tree.stats, child_c)
+    cs = _edge_stats_from_raw(tree, bidx, node, cs_raw, child_row=child_c, evis_row=ev_c)
+    selection = _selection_compact(
+        sp, prior_c, cs, tree.stats[bidx, node], tree.self_stats[bidx, node, F_U]
+    )
+    return cand, LevelScratch(cs_raw, prior_c, child_c, ev_c), selection
+
+
+def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth: int):
+    """The root level of descent, at full width from the carried root child
+    stats. Returns (path, acts) [B, max_depth + 1] for the playout, the
+    root's action act0 [B], and (node, depth, active) [B] after the level;
+    the traversed root edge is counted in `tree.edge_visits`."""
+    B = root_cs.shape[0]
+    dev = root_cs.device
+    bidx = torch.arange(B, device=dev)
     zero = torch.zeros((B,), dtype=torch.int64, device=dev)
     path = torch.full((B, max_depth + 1), -1, dtype=torch.int64, device=dev)
     path[:, 0] = 0
     acts = torch.zeros((B, max_depth + 1), dtype=torch.int64, device=dev)
 
-    # ---------------- Descent ----------------
-    # root level, full width
     root_term = tree.is_terminal[:, 0]
     cs0 = _edge_stats_from_raw(tree, bidx, zero, root_cs)
     act0 = _select_action(sp, tree, zero, torch.ones_like(root_term), cs=cs0)
@@ -471,24 +520,32 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     depth = move_on0.to(torch.int64)
     path[:, 1] = torch.where(move_on0, node, path[:, 1])
     active = move_on0 & (1 < max_depth)
+    return path, acts, act0, node, depth, active
 
-    # interior levels on compact lanes; levels[j] saves depth j+1's lanes
-    # for the backup
-    levels = []
+
+def _descend_interior_plain(cfg, sp: SearchParams, tree: Tree, node, depth, active, path, acts,
+                            scratch: LevelScratch):
+    """The interior levels of descent on compact lanes, all B games in lock
+    step with one host sync per level, from (node, depth, active) after the
+    root level down to the leaf. Per level and active game: the lanes go to
+    `scratch` slot depth-1, the chosen lane to `acts[depth]` (also where the
+    child is missing), and on moving on the edge visit to
+    `tree.edge_visits` and the child to `path`; all in place. Stops at a
+    terminal node, a missing child or depth == max_depth (the scratch's D).
+    Returns (leaf, leaf_depth) [B]."""
+    B = node.shape[0]
+    bidx = torch.arange(B, device=node.device)
+    max_depth = scratch.child_c.shape[1]
     while bool(active.any()):
         term = tree.is_terminal[bidx, node]
-        cand, valid = _cand_lanes(cfg, tree.states, bidx, node)
-        child_c = _compact_row(tree.children[bidx, node], cand, valid, -1)
-        ev_c = _compact_row(tree.edge_visits[bidx, node], cand, valid, 0).to(torch.float32)
-        prior_c = _compact_row(tree.prior[bidx, node], cand, valid, -1.0)
-        cs_raw = gather_rows(tree.stats, child_c)
-        levels.append((cs_raw, prior_c, child_c, ev_c))
+        cand, lanes, selection = _interior_level(cfg, sp, tree, bidx, node)
+        slot = (depth - 1).clamp(min=0)
+        for buf, val in zip(scratch, lanes):
+            keep = active.reshape((B,) + (1,) * (val.dim() - 1))
+            buf[bidx, slot] = torch.where(keep, val, buf[bidx, slot])
 
-        cs = _edge_stats_from_raw(tree, bidx, node, cs_raw, child_row=child_c, evis_row=ev_c)
-        act_c = _select_action_compact(
-            sp, prior_c, cs, tree.stats[bidx, node], tree.self_stats[bidx, node, F_U]
-        )
-        child = child_c[bidx, act_c]
+        act_c = torch.argmax(selection, dim=-1)
+        child = lanes.child_c[bidx, act_c]
         flat_act = cand[bidx, act_c]  # -1 only where the lane is not active
         move_on = active & ~term & (child >= 0)
         rec = active & ~term
@@ -498,8 +555,36 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
         depth = torch.where(move_on, depth + 1, depth)
         path[bidx, torch.where(move_on, depth, 0)] = torch.where(move_on, node, path[:, 0])
         active = move_on & (depth < max_depth)
+    return node, depth
 
-    leaf, leaf_depth = node, depth
+
+def _descend_interior(cfg, sp: SearchParams, tree: Tree, node, depth, active, path, acts,
+                      scratch: LevelScratch):
+    """The interior descent: `_descend_interior_plain` on CPU tensors, else
+    one launch of the fused CUDA kernel (`ops.descend.descend_interior`),
+    which raises on anything it does not take. No fallback."""
+    if tree.stats.device.type == "cpu" and node.device.type == "cpu":
+        return _descend_interior_plain(cfg, sp, tree, node, depth, active, path, acts, scratch)
+    cand = _cand_table_i32(cfg, node.device)
+    return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
+
+
+def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth: int,
+                   root_cs: torch.Tensor, scratch: LevelScratch) -> torch.Tensor:
+    """One playout per game, updating `tree` in place. `root_cs` [B, A, 8]
+    is the root's child-stats gather carried across the simulations of one
+    search: only the root child this playout went through changes, so it is
+    patched here (in place) and returned. `scratch` holds the interior
+    levels' lanes from the descent to the backup."""
+    B, N, A = tree.prior.shape
+    dev = tree.stats.device
+    bidx = torch.arange(B, device=dev)
+    C = 4 * max(cfg.x_size, cfg.y_size)
+    zero = torch.zeros((B,), dtype=torch.int64, device=dev)
+
+    # ---------------- Descent ----------------
+    path, acts, act0, node, depth, active = _descend_root(sp, tree, root_cs, max_depth)
+    leaf, leaf_depth = _descend_interior(cfg, sp, tree, node, depth, active, path, acts, scratch)
     # the stopping edge's flat action: the root's, or the recorded lane
     # mapped through the leaf's candidate table
     leaf_cand, _ = _cand_lanes(cfg, tree.states, bidx, leaf)
@@ -573,14 +658,15 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     # ---------------- Backup ----------------
     # Recompute the path bottom-up. A terminal/overflow revisit starts at the
     # leaf's parent; an expansion starts at the stopping node. Interior
-    # levels reuse the descent's saved lanes, patched with what this playout
-    # changed: the new child link, the edge visits, the path child's stats.
+    # levels reuse the descent's saved lanes (the scratch), patched with what
+    # this playout changed: the new child link, the edge visits, the path
+    # child's stats.
     limit = torch.where(revisit | depth_capped, leaf_depth - 1, leaf_depth)
     new_child = torch.where(do_alloc, new_idx, -1).to(torch.int32)
     for lvl in range(int(limit.max()), 0, -1):
         n = path[:, lvl]
         on_path = (lvl <= limit) & (n >= 0) & (lvl <= leaf_depth)
-        cs_raw, prior_c, child_c, ev_c = levels[lvl - 1]
+        cs_raw, _, child_c, ev_c = (x[:, lvl - 1] for x in scratch)  # views: patches land
         pa = acts[:, lvl]
         at_stop = leaf_depth == lvl
         child_c[bidx, pa] = torch.where(at_stop & (new_child >= 0), new_child, child_c[bidx, pa])
@@ -698,8 +784,9 @@ def run_search(
     root_cs = _gather_child_stats(
         tree, torch.arange(B, device=dev), torch.zeros((B,), dtype=torch.int64, device=dev)
     )
+    scratch = make_level_scratch(cfg, B, max_depth, dev)
     for _ in range(num_sims):
-        root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs)
+        root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch)
     return tree
 
 

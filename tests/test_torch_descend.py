@@ -1,0 +1,412 @@
+"""The fused interior descent (`katacoffee_tpu_torch.ops.descend` and its
+plain version `mcts._descend_interior_plain`), on the CPU.
+
+The CUDA kernel runs only on the card, where chip_smoke.py holds it to the
+plain version. Here its algorithm is emulated one game at a time in plain
+numpy float32 (`_emulate`, lanes in order, the kernel's summation order and
+constants, the first maximum on ties, and its stop and record rules) and held
+to the plain version on trees taken mid-search: 5x5 with a tiny net (C = 20
+candidate lanes) and 9x9 with the uniform evaluator (C = 36, more lanes than
+a warp has threads), under three selection profiles and a depth cap. Leaf,
+depth, path, acts, edge visits and the scratch slots must be equal; the
+scratch's stat rows also equal the JAX package's gather. The PUCT scores
+agree within 1e-6, not exactly: the emulation sums the lanes in the order of
+torch's CUDA reduction, the CPU plain version in its vectorized order, and a
+division by a constant is the CUDA multiply by its reciprocal, each a
+difference in the last bit of a float32 score of order one.
+"""
+
+import functools
+import importlib.util
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import katacoffee_tpu.ops.gather as JG
+from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+from katacoffee_tpu_torch.game import board as TB
+from katacoffee_tpu_torch.ops import _build, descend
+from katacoffee_tpu_torch.search import mcts as TM
+from katacoffee_tpu_torch.search.params import SearchParams
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINYNET = os.path.join(ROOT, "tests/goldens/tinynet")
+F = np.float32
+
+# the selection branches of tests/test_torch_search.py
+SELECT_BRANCHES = dict(
+    cpuctExploration=1.1,
+    cpuctExplorationLog=0.4,
+    cpuctUtilityStdevScale=0.85,
+    cpuctUtilityStdevPrior=0.4,
+    cpuctUtilityStdevPriorWeight=2.0,
+    rootDesiredPerChildVisitsCoeff=2.0,
+    rootFpuReductionMax=0.0,
+)
+PROFILES = {
+    "default": {},
+    "visited_policy": dict(SELECT_BRANCHES, fpuParentWeightByVisitedPolicy=True,
+                           fpuParentWeightByVisitedPolicyPow=2.0),
+    "parent_weight": dict(SELECT_BRANCHES, fpuParentWeight=0.5, fpuLossProp=0.1,
+                          valueWeightExponent=0.0),
+}
+BOARDS = {"5x5": (TB.GameConfig(5, 5, 4), "tinynet"), "9x9": (TB.GameConfig(9, 9, 4), "uniform")}
+
+
+# ---------------------------------------------------------------------------
+# The kernel's algorithm, one game at a time
+# ---------------------------------------------------------------------------
+
+
+def _row_sum(x):
+    """Sum of the lane values in the order of torch's CUDA sum over the last
+    dim of a [B, C] tensor, which the kernel follows: block width
+    w = min(last_pow2(C), 32), lane l adds lane l + w, then a tree over
+    halving offsets."""
+    C = len(x)
+    w = min(32, 1 << (C.bit_length() - 1))
+    v = [x[i] + (x[i + w] if i + w < C else F(0)) for i in range(w)]
+    while len(v) > 1:
+        h = len(v) // 2
+        v = [v[i] + v[i + h] for i in range(h)]
+    return v[0]
+
+
+def _pow(x, e):
+    special = {0.0: lambda: F(1), 1.0: lambda: x, 2.0: lambda: x * x, 3.0: lambda: x * x * x,
+               0.5: lambda: np.sqrt(x), -0.5: lambda: F(1) / np.sqrt(x),
+               -1.0: lambda: F(1) / x, -2.0: lambda: F(1) / (x * x)}
+    return special[e]() if e in special else np.power(x, F(e))
+
+
+def _scores(sp, ns, self_u, pr, w, live, q_child):
+    """The PUCT scores of one node's lanes, as the kernel computes them."""
+    C = len(pr)
+    total_w = _row_sum(w)
+    mass = _row_sum([max(pr[c], F(0)) if live[c] else F(0) for c in range(C)])
+    factor = F(1)
+    if sp.cpuctUtilityStdevScale != 0.0:
+        w_sum, u = ns[1], ns[3]
+        uu = u * u
+        usq = max(ns[4], uu)
+        num = (uu + F(sp.cpuctUtilityStdevPrior**2)) * F(sp.cpuctUtilityStdevPriorWeight) + usq * w_sum
+        den = F(sp.cpuctUtilityStdevPriorWeight) + max(w_sum - F(1), F(1e-8))
+        stdev = np.sqrt(max(num / den - uu, F(0)))
+        stdev = F(sp.cpuctUtilityStdevPrior) if w_sum <= F(1) else stdev
+        inv_prior = F(1) / F(sp.cpuctUtilityStdevPrior)
+        factor = F(1) + F(sp.cpuctUtilityStdevScale) * (stdev * inv_prior - F(1))
+    inv_base = F(1) / F(sp.cpuctExplorationBase)
+    cpuct = F(sp.cpuctExploration) + F(sp.cpuctExplorationLog) * np.log(
+        (total_w + F(sp.cpuctExplorationBase)) * inv_base)
+    explore = cpuct * np.sqrt(total_w + F(0.01)) * factor
+    parent_u = ns[3]
+    if sp.fpuParentWeightByVisitedPolicy:
+        avg_w = min(_pow(mass, sp.fpuParentWeightByVisitedPolicyPow), F(1))
+        parent_u = avg_w * ns[3] + (F(1) - avg_w) * self_u
+    elif sp.fpuParentWeight > 0.0:
+        parent_u = F(sp.fpuParentWeight) * self_u + F(1.0 - sp.fpuParentWeight) * ns[3]
+    fpu = parent_u - F(sp.fpuReductionMax) * np.sqrt(mass)
+    fpu = fpu + (F(-sp.winLossUtilityFactor) - fpu) * F(sp.fpuLossProp)
+    out = []
+    for c in range(C):
+        q = q_child[c] if live[c] else fpu
+        v = explore * max(pr[c], F(0)) / (F(1) + w[c]) + q
+        out.append(F(-np.inf) if pr[c] < 0 else v)
+    return out
+
+
+def _first_max(sel):
+    """The kernel's warp argmax: the first maximum, as torch.argmax (lane 0
+    when every score is -inf)."""
+    best = 0
+    for c in range(1, len(sel)):
+        if sel[c] > sel[best]:
+            best = c
+    return best
+
+
+def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_first_max):
+    """The kernel's descent over CPU tensors, updated in place through numpy
+    views, choosing each level's lane with `pick(scores)`. Returns (leaf,
+    leaf_depth) and {(game, depth): scores} of each non-terminal level."""
+    cand_tab = TM._cand_table_np(cfg.x_size, cfg.y_size, cfg.win_len)
+    st = tree.states
+    last_spot, last_dir = st.last_spot.numpy(), st.last_dir.numpy()
+    term_t, children, prior = tree.is_terminal.numpy(), tree.children.numpy(), tree.prior.numpy()
+    stats, self_stats, ev_t = tree.stats.numpy(), tree.self_stats.numpy(), tree.edge_visits.numpy()
+    path_n, acts_n = path.numpy(), acts.numpy()
+    cs_raw, prior_c, child_c, ev_c = (x.numpy() for x in scratch)
+    B, N, _ = children.shape
+    D, C = child_c.shape[1:]
+    leaf, leaf_depth = node.clone().numpy(), depth.clone().numpy()
+    scores = {}
+    for b in range(B):
+        n, d, on = int(node[b]), int(depth[b]), bool(active[b])
+        while on:
+            spot, direction = int(last_spot[b, n]), int(last_dir[b, n])
+            spot = cfg.area if spot < 0 or spot > cfg.area else spot
+            cand = cand_tab[spot, min(max(direction, 0), 4)]
+            kids, pr, w, live, q_child = [], [], [], [], []
+            for c in range(C):
+                a = int(cand[c])
+                kid, ev, p = (int(children[b, n, a]), F(ev_t[b, n, a]), prior[b, n, a]) if a >= 0 else (-1, F(0), F(-1))
+                raw = stats[b, kid] if 0 <= kid < N else np.zeros(8, F)
+                cs_raw[b, d - 1, c], prior_c[b, d - 1, c] = raw, p
+                child_c[b, d - 1, c], ev_c[b, d - 1, c] = kid, ev
+                is_live = kid >= 0 and ev > 0
+                kids.append(kid)
+                pr.append(p)
+                live.append(is_live)
+                w.append(raw[1] * (ev / max(raw[0], F(1))) if is_live else F(0))
+                q_child.append(-raw[3])
+            if term_t[b, n]:
+                break
+            sel = _scores(sp, stats[b, n], self_stats[b, n, TM.F_U], pr, w, live, q_child)
+            scores[(b, d)] = sel
+            best = pick(sel)
+            acts_n[b, d] = best
+            if kids[best] < 0:
+                break
+            ev_t[b, n, cand[best]] += 1
+            path_n[b, d + 1] = kids[best]
+            n, d = kids[best], d + 1
+            on = d < D
+        leaf[b], leaf_depth[b] = n, d
+    return torch.from_numpy(leaf), torch.from_numpy(leaf_depth), scores
+
+
+# ---------------------------------------------------------------------------
+# Trees mid-search
+# ---------------------------------------------------------------------------
+
+
+def _random_roots(cfg, batch, seed, min_plies=0):
+    """`batch` positions after min_plies..15 random legal plies."""
+    rng = np.random.default_rng(seed)
+    s = TB.init_state(cfg, batch, "cpu")
+    plies = rng.integers(min_plies, 16, batch)
+    for ply in range(int(plies.max())):
+        legal = TB.legal_mask_flat(cfg, s).numpy()
+        act = torch.from_numpy((rng.random(legal.shape) * legal).argmax(-1))
+        new = TB.step(cfg, s, act)
+        keep = torch.from_numpy(ply < plies)
+        s = TB.GameState(*(
+            torch.where(keep.reshape((batch,) + (1,) * (o.dim() - 1)), nw, o) for o, nw in zip(s, new)
+        ))
+    return s
+
+
+def _eval_fn(cfg, evals):
+    if evals == "uniform":
+        return TM.uniform_eval_fn(cfg)
+    return TM.make_nn_eval_fn(cfg, load_exported_model(TINYNET, device="cpu", dtype=torch.float32)[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _mid_search_tree(board):
+    cfg, evals = BOARDS[board]
+    roots = _random_roots(cfg, 8, seed=len(board))
+    return TM.run_search(cfg, SearchParams(), _eval_fn(cfg, evals), roots, 30, device="cpu")
+
+
+def _descent_inputs(board, sp, max_depth=None):
+    """A copy of the mid-search tree after the root level of a playout, with
+    a scratch filled with arbitrary valid lanes (as an earlier playout
+    leaves it)."""
+    cfg, _ = BOARDS[board]
+    base = _mid_search_tree(board)
+    tree = base._replace(edge_visits=base.edge_visits.clone())
+    B, N, _ = tree.children.shape
+    max_depth = cfg.area + 1 if max_depth is None else max_depth
+    bidx = torch.arange(B)
+    root_cs = TM._gather_child_stats(tree, bidx, torch.zeros(B, dtype=torch.int64))
+    path, acts, _, node, depth, active = TM._descend_root(sp, tree, root_cs, max_depth)
+    rng = np.random.default_rng(7)
+    scratch = TM.make_level_scratch(cfg, B, max_depth, "cpu")
+    scratch.cs_raw.copy_(torch.from_numpy(rng.standard_normal(scratch.cs_raw.shape).astype(F)))
+    scratch.prior_c.copy_(torch.from_numpy(rng.random(scratch.prior_c.shape).astype(F)))
+    scratch.child_c.copy_(torch.from_numpy(rng.integers(-1, N, scratch.child_c.shape).astype(np.int32)))
+    scratch.ev_c.copy_(torch.from_numpy(rng.integers(0, 5, scratch.ev_c.shape).astype(F)))
+    return cfg, tree, (node, depth, active, path, acts, scratch)
+
+
+def _copy(tree, state):
+    node, depth, active, path, acts, scratch = state
+    return (tree._replace(edge_visits=tree.edge_visits.clone()), node, depth, active, path.clone(),
+            acts.clone(), TM.LevelScratch(*(x.clone() for x in scratch)))
+
+
+# ---------------------------------------------------------------------------
+# Tests
+# ---------------------------------------------------------------------------
+
+
+def _check_against_plain(board, profile, max_depth=None):
+    sp = SearchParams(**PROFILES[profile])
+    cfg, tree, state = _descent_inputs(board, sp, max_depth)
+    t_p, node, depth, active, path_p, acts_p, sc_p = _copy(tree, state)
+    t_e, _, _, _, path_e, acts_e, sc_e = _copy(tree, state)
+    leaf_p, ld_p = TM._descend_interior_plain(cfg, sp, t_p, node, depth, active, path_p, acts_p, sc_p)
+    leaf_e, ld_e, scores = _emulate(cfg, sp, t_e, node, depth, active, path_e, acts_e, sc_e)
+
+    assert torch.equal(leaf_e, leaf_p) and torch.equal(ld_e, ld_p)
+    assert torch.equal(path_e, path_p) and torch.equal(acts_e, acts_p)
+    assert torch.equal(t_e.edge_visits, t_p.edge_visits)
+    for name, a, b in zip(TM.LevelScratch._fields, sc_e, sc_p):
+        assert torch.equal(a, b), name
+
+    # the scratch slots of this descent hold the JAX package's gather
+    D = sc_p.child_c.shape[1]
+    written = torch.zeros(sc_p.child_c.shape[:2], dtype=torch.bool)
+    for b in range(node.shape[0]):
+        if active[b]:
+            hi = int(ld_p[b]) if int(ld_p[b]) < D else D - 1
+            written[b, int(depth[b]) - 1: hi] = True
+    assert written.any()
+    want = np.asarray(JG._gather_rows_xla(
+        jnp.asarray(tree.stats.numpy()), jnp.asarray(sc_p.child_c.reshape(node.shape[0], -1).numpy())
+    )).reshape(sc_p.cs_raw.shape)
+    assert np.array_equal(sc_p.cs_raw.numpy()[written.numpy()], want[written.numpy()])
+
+    # the emulated scores against the plain version's, level by level
+    levels = sorted({d for _, d in scores})
+    assert levels, "no interior level was selected"
+    bidx = torch.arange(node.shape[0])
+    for d in levels:
+        _, _, sel = TM._interior_level(cfg, sp, tree, bidx, path_p[:, d].clamp(min=0))
+        for b in [b for b, dd in scores if dd == d]:
+            np.testing.assert_allclose(np.asarray(scores[(b, d)]), sel[b].numpy(), rtol=0, atol=1e-6)
+    return ld_p, leaf_p, t_p
+
+
+@pytest.mark.parametrize("profile", list(PROFILES))
+@pytest.mark.parametrize("board", list(BOARDS))
+def test_emulated_kernel_matches_plain_descent(board, profile):
+    ld, _, _ = _check_against_plain(board, profile)
+    assert (ld >= 2).any(), "no game descended past the first interior level"
+
+
+def test_emulated_kernel_matches_plain_descent_at_the_depth_cap():
+    ld, _, _ = _check_against_plain("5x5", "default", max_depth=3)
+    assert (ld == 3).any()
+
+
+def test_search_with_the_emulated_kernel_equals_the_plain_search():
+    """The kernel's algorithm in the whole search: every playout's interior
+    descent emulated gives the plain CPU search's tree exactly (and that one
+    equals JAX's visit counts, tests/test_torch_search.py). Late-game roots,
+    so that descents end at terminal nodes too."""
+    cfg, evals = BOARDS["5x5"]
+    roots = _random_roots(cfg, 4, seed=11, min_plies=6)
+    sp = SearchParams(**PROFILES["visited_policy"])
+    plain = TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 40, device="cpu")
+    orig = TM._descend_interior
+    try:
+        TM._descend_interior = lambda *a: _emulate(*a)[:2]
+        emulated = TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 40, device="cpu")
+    finally:
+        TM._descend_interior = orig
+    for name, a, b in zip(TM.Tree._fields, emulated, plain):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), name
+    revisited_terminal = plain.is_terminal & (plain.stats[..., TM.S_VISITS] > 1)
+    assert revisited_terminal.any(), "no descent ended at a terminal node"
+
+
+# the kernel's lane choice, and two wrong ones
+PICKS = {
+    "first_max": _first_max,
+    "last_max": lambda sel: max(range(len(sel)), key=lambda c: (sel[c], c)),
+    "runner_up": lambda sel: sorted(range(len(sel)), key=lambda c: (-sel[c], c))[1],
+}
+
+
+@pytest.mark.parametrize("pick", list(PICKS))
+def test_chip_check_holds_the_descent_to_torch_argmax(pick):
+    """chip_smoke.py's `compare_descent`, which holds the card's descent to
+    the plain version, passes the kernel's algorithm and refuses it with the
+    ties broken to the highest lane or with the runner-up lane taken. 9x9
+    with the uniform evaluator: unvisited lanes tie exactly."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    sp = SearchParams()
+    cfg, tree, state = _descent_inputs("9x9", sp)
+    start_ev = tree.edge_visits.clone()
+    t_p, node, depth, active, path_p, acts_p, sc_p = _copy(tree, state)
+    t_e, _, _, _, path_e, acts_e, sc_e = _copy(tree, state)
+    leaf_p, ld_p = TM._descend_interior_plain(cfg, sp, t_p, node, depth, active, path_p, acts_p, sc_p)
+    leaf_e, ld_e, _ = _emulate(cfg, sp, t_e, node, depth, active, path_e, acts_e, sc_e, pick=PICKS[pick])
+    want = (leaf_p, ld_p, path_p, acts_p, t_p.edge_visits, *sc_p)
+    got = (leaf_e, ld_e, path_e, acts_e, t_e.edge_visits, *sc_e)
+    check = functools.partial(chip_smoke.compare_descent, f"9x9 {pick}", cfg, sp, tree, start_ev, state,
+                              got, want)
+    if pick == "first_max":
+        assert check() == (0, 0.0)
+    else:
+        assert not torch.equal(acts_e, acts_p)
+        with pytest.raises(AssertionError, match="another lane"):
+            check()
+    assert torch.equal(tree.edge_visits, start_ev)
+
+
+def test_constants_are_rounded_as_torch_rounds_python_scalars():
+    sp = SearchParams(**PROFILES["visited_policy"])
+    floats, ints = descend.select_constants(sp)
+    assert floats.dtype == np.float32 and ints.dtype == np.int32
+    assert floats[3] == F(1) / F(sp.cpuctExplorationBase)
+    assert floats[7] == F(sp.cpuctUtilityStdevPrior**2)
+    assert list(ints) == [1, 1, 3]  # stdev factor on, fpu by visited policy, pow 2 = x * x
+
+
+def test_cpu_tensors_take_the_plain_descent_without_a_launch():
+    sp = SearchParams()
+    cfg, tree, state = _descent_inputs("5x5", sp)
+    t_a, node, depth, active, path_a, acts_a, sc_a = _copy(tree, state)
+    t_b, _, _, _, path_b, acts_b, sc_b = _copy(tree, state)
+    before = descend.descend_interior.launches
+    got = TM._descend_interior(cfg, sp, t_a, node, depth, active, path_a, acts_a, sc_a)
+    want = TM._descend_interior_plain(cfg, sp, t_b, node, depth, active, path_b, acts_b, sc_b)
+    assert descend.descend_interior.launches == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(t_a.edge_visits, t_b.edge_visits) and torch.equal(acts_a, acts_b)
+
+
+def test_kernel_wrapper_refuses_what_it_does_not_take():
+    """No fallback: CPU tensors, mixed devices, wrong dtypes and too many
+    lanes raise in the wrapper; mixed devices also through the dispatcher."""
+    sp = SearchParams()
+    cfg, tree, state = _descent_inputs("5x5", sp)
+    node, depth, active, path, acts, scratch = state
+    cand = TM._cand_table_i32(cfg, torch.device("cpu"))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        descend.descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
+    meta_node = torch.empty(node.shape, dtype=node.dtype, device="meta")
+    with pytest.raises(ValueError, match="node on meta"):
+        TM._descend_interior(cfg, sp, tree, meta_node, depth, active, path, acts, scratch)
+    with pytest.raises(TypeError, match="acts"):
+        descend.descend_interior(sp, cand, tree, node, depth, active, path, acts.to(torch.int32), scratch)
+    with pytest.raises(ValueError, match="contiguous"):
+        descend.descend_interior(sp, cand, tree, node, depth, active, path.t().contiguous().t(), acts,
+                                 scratch)
+    wide = TM.make_level_scratch(TB.GameConfig(16, 16, 5), node.shape[0], scratch.child_c.shape[1], "cpu")
+    with pytest.raises(ValueError, match="candidate lanes"):
+        descend.descend_interior(sp, cand, tree, node, depth, active, path, acts, wide)
+
+
+def test_cuda_search_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg, _ = BOARDS["5x5"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.run_search(cfg, SearchParams(), TM.uniform_eval_fn(cfg), TB.init_state(cfg, 2, "cpu"), 2)
+
+
+def test_descend_library_name_carries_the_source_hash():
+    lib = _build.library_path(descend.SOURCE)
+    assert lib.parent == _build.BUILD_DIR and lib.name.startswith("descend_kernel-")
+    assert lib != _build.library_path(_build.Path(__file__))
+    assert "--fmad=false" in _build.NVCC_FLAGS and "--use_fast_math" not in _build.NVCC_FLAGS
