@@ -13,21 +13,32 @@ the run with a non-zero exit and a traceback:
   2. each kernel against its plain torch version: the child-stats gather
      exactly at the search's shapes, timed against the plain version and
      torch.gather; the fused interior descent on copies of mid-search trees
-     (B=512 b6c96 5x5, B=64 uniform 9x9; the default and a branch profile),
-     equal except games whose first different act is a near-tie of the
-     plain version's scores of the two lanes (counted), timed at B=512;
+     (B=512 b6c96 5x5, B=64 uniform 9x9, default and a branch profile; a
+     B=512 b6c96 tree grown under the selfplay profile with graph search,
+     whose links and catch-ups are counted, as it is and with interior
+     edges one visit behind their children), equal in every output,
+     `caught` included, except games whose first different act is a
+     near-tie of the plain version's scores of the two lanes (counted),
+     timed on the B=512 default and selfplay trees;
   3. the b6c96 net (`run-s5200`, loaded with numpy) on the card against the
      CPU: float32 within 1e-4 on every head, the bf16 trunk within BF16_ATOL;
-  4. the main path: `benchmark_search` at B=512, 600 visits, with both
-     kernels' launch counts reset before and read after (one descent launch
-     per simulation, at most two gathers per search); then B=64 searches of
-     random positions: plain descent with the gather kernel against the
-     plain gather (identical), and both kernels against both plain versions
-     (identical games counted, total variation within TV_MAX); then card
-     against CPU at float32 on B=8 (root visit distributions); then a
-     profile of a short B=512 search (device busy share, launches, host
-     syncs);
-  5. the kernel table as one JSON line, then the result line.
+  4. the default profile's path: `benchmark_search` at B=512, 600 visits,
+     with both kernels' launch counts reset before and read after (one
+     descent launch per simulation, at most two gathers per search); then
+     B=64 searches of random positions: plain descent with the gather kernel
+     against the plain gather (identical), and both kernels against both
+     plain versions (identical games counted, total variation within
+     TV_MAX); then card against CPU at float32 on B=8;
+  5. the slice's main path, the selfplay actor's per-move search: B=512
+     b6c96 bf16, 600 visits, N=182 slots, a fresh search, its readouts, the
+     step and a search on the reused tree, with the launch counts reset
+     before and read after (one descent launch per simulation run); then,
+     under the selfplay profile, both kernels against both plain versions at
+     B=64 with one generator seed (identical root visits in every game) and
+     card against CPU at float32 on B=8 with the same root draws;
+  6. profiles of a short B=512 search under both profiles (device busy
+     share, launches and host syncs per playout);
+  7. the kernel table as one JSON line, then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -46,9 +57,11 @@ from concurrent.futures import ThreadPoolExecutor
 T0 = time.monotonic()
 MODEL_DIR = "artifacts/flagship_b6c96/models/run-s5200"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-KERNEL_SHAPES = ((16, 64, 8, 24), (8, 130, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
-TIMED_SHAPES = ((512, 602, 8, 100), (512, 602, 8, 20))
-MAIN_SHAPE = (512, 602, 8, 100)  # the root's full-width gather, the one left on the main path
+KERNEL_SHAPES = ((16, 64, 8, 24), (8, 130, 8, 100), (512, 182, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
+TIMED_SHAPES = ((512, 182, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
+# the selfplay path's full-width gather (root and readouts, N=182 slots); the
+# N=602 shapes are the default path's
+MAIN_SHAPE = (512, 182, 8, 100)
 # A kernel-vs-plain descent may pick another lane only where the plain
 # version scores the kernel's lane below its own by at most this (and not
 # equal): sums of float32 lanes in another order differ in the last bits of
@@ -213,13 +226,14 @@ def descent_inputs(cfg, sp, tree):
     root_cs = mcts._gather_child_stats(
         tree, torch.arange(B, device=dev), torch.zeros((B,), dtype=torch.int64, device=dev)
     )
-    path, acts, _, node, depth, active = mcts._descend_root(sp, tree, root_cs, cfg.area + 1)
-    return node, depth, active, path, acts, mcts.make_level_scratch(cfg, B, cfg.area + 1, dev)
+    max_depth = mcts._max_depth(cfg, sp)
+    path, acts, _, node, depth, active, _ = mcts._descend_root(sp, tree, root_cs, max_depth)
+    return node, depth, active, path, acts, mcts.make_level_scratch(cfg, B, max_depth, dev)
 
 
 def run_descent(fn, cfg, sp, tree, start_ev, inputs):
     """`fn` (kernel dispatcher or plain version) on copies of the inputs;
-    returns (leaf, leaf_depth, path, acts, edge_visits, *scratch)."""
+    returns (leaf, leaf_depth, path, acts, edge_visits, *scratch, caught)."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
@@ -228,14 +242,14 @@ def run_descent(fn, cfg, sp, tree, start_ev, inputs):
     tree.edge_visits.copy_(start_ev)
     p, a = path.clone(), acts.clone()
     sc = mcts.LevelScratch(*(x.clone() for x in scratch))
-    leaf, leaf_depth = fn(cfg, sp, tree, node, depth, active, p, a, sc)
+    leaf, leaf_depth, caught = fn(cfg, sp, tree, node, depth, active, p, a, sc)
     torch.cuda.synchronize()
-    return (leaf, leaf_depth, p, a, tree.edge_visits.clone(), *sc)
+    return (leaf, leaf_depth, p, a, tree.edge_visits.clone(), *sc, caught)
 
 
 def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want) -> tuple[int, float]:
     """Holds a descent's outputs `got` (leaf, leaf_depth, path, acts,
-    edge_visits, *scratch) to the plain version's `want` from the same
+    edge_visits, *scratch, caught) to the plain version's `want` from the same
     `inputs`. A game whose acts agree must agree in every output. A game
     whose acts differ agrees up to its first different act, which the plain
     version recorded too (an active game, a non-terminal node above the depth
@@ -310,7 +324,7 @@ def descent_bound_ms(cfg, tree, inputs, out) -> float:
     row (32 B; deeper nodes' rows were read as the level above's child row).
     Each distinct candidate-table row once (4 B a lane); per step 8 B of path
     and the 4 B edge-visit write (its read is the candidate's); per game 17 B
-    in and 16 B out."""
+    in and 17 B out (leaf, depth, caught)."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
@@ -335,7 +349,7 @@ def descent_bound_ms(cfg, tree, inputs, out) -> float:
     present = int(((out_child_c >= 0) & done[..., None]).sum())
     steps = int(torch.where(active, leaf_depth - depth, 0).sum())
     nbytes = (levels * (17 + 44 * C) + int(nonterm.sum()) * 12 + int(first.sum()) * 32 + rows * 4 * C
-              + valid * 12 + present * 32 + steps * 12 + B * 33)
+              + valid * 12 + present * 32 + steps * 12 + B * 34)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -379,10 +393,27 @@ def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30):
     return statistics.median(kernel), statistics.median(plain)
 
 
-def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200):
+def count_links(tree) -> int:
+    """Nodes of `tree` that two or more parents link to (transpositions)."""
+    import torch
+
+    kids = tree.children.to(torch.int64)
+    m = kids >= 0
+    b = torch.arange(kids.shape[0], device=kids.device)[:, None, None].expand_as(kids)
+    parents = torch.zeros(tree.stats.shape[:2], dtype=torch.int64, device=kids.device)
+    parents.index_put_((b[m], kids[m]), torch.ones_like(kids[m]), accumulate=True)
+    return int((parents > 1).sum())
+
+
+def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200, selfplay_nodes=182):
     """The fused descent kernel against `_descend_interior_plain` on copies
-    of mid-search trees, held by `compare_descent`. Timed on the B=512
-    b6c96 tree with the default profile."""
+    of mid-search trees, held by `compare_descent`: B=512 b6c96 and B=64
+    uniform 9x9 under the default and a branch profile, and a B=512 b6c96
+    tree grown under the selfplay profile (graph search, N=182), as it is
+    and with every edge of two or more visits out of a node two or more
+    plies below the root one visit behind its child (so that descents pass
+    the first interior level and stop at catch-ups deeper down). Timed on
+    the B=512 trees with the default and the selfplay profile."""
     import torch
 
     from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
@@ -395,20 +426,48 @@ def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200):
         rootDesiredPerChildVisitsCoeff=2.0, rootFpuReductionMax=0.0,
         fpuParentWeightByVisitedPolicy=True, fpuParentWeightByVisitedPolicyPow=2.0,
     )
-    profiles = (("default", SearchParams()), ("branch", branch))
+    selfplay = SearchParams.for_selfplay()
+    default_profiles = (("default", SearchParams(), False), ("branch", branch, False))
+    selfplay_profiles = (("selfplay", selfplay, False), ("selfplay, deep edges behind", selfplay, True))
     net = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
+    roots = random_positions(cfg, batch, seed=1)
     cases = (
-        (f"B={batch} b6c96 5x5", cfg, net, random_positions(cfg, batch, seed=1), sims, 602),
+        (f"B={batch} b6c96 5x5", cfg, net, roots, sims, 602, SearchParams(), default_profiles),
         (f"B={batch9} uniform 9x9", cfg9, mcts.uniform_eval_fn(cfg9), random_positions(cfg9, batch9, seed=2),
-         sims9, None),
+         sims9, None, SearchParams(), default_profiles),
+        (f"B={batch} b6c96 5x5 N={selfplay_nodes}", cfg, net, roots, sims, selfplay_nodes, selfplay,
+         selfplay_profiles),
     )
-    timed = cases[0][0]
-    result = {"flips": 0, "games": 0, "levels": 0, "max_abs_err": 0.0}
-    for label, c, eval_fn, roots, sims, max_nodes in cases:
-        tree = mcts.run_search(c, SearchParams(), eval_fn, roots, sims, max_nodes, device=dev)
+    timed = {(cases[0][0], "default"): "default", (cases[2][0], "selfplay"): "selfplay"}
+    result = {"flips": 0, "games": 0, "levels": 0, "max_abs_err": 0.0, "timed": {}}
+    for label, c, eval_fn, case_roots, case_sims, max_nodes, grow_sp, profiles in cases:
+        caught_in_search = torch.zeros((), dtype=torch.int64, device=dev)
+        kept = mcts._descend_interior
+
+        def counting(*args):
+            out = kept(*args)
+            caught_in_search.add_(out[2].sum())
+            return out
+
+        mcts._descend_interior = counting
+        try:
+            tree = mcts.run_search(c, grow_sp, eval_fn, case_roots, case_sims, max_nodes, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(3))
+        finally:
+            mcts._descend_interior = kept
+        if grow_sp.useGraphSearch:
+            links, caught_n = count_links(tree), int(caught_in_search)
+            log(f"{label} selfplay tree {case_sims} sims in: {links} transposition links, "
+                f"{caught_n} interior catch-ups while it grew")
+            if links == 0 or caught_n == 0:
+                raise AssertionError(f"{label}: graph search made no links or no catch-ups")
         base_ev = tree.edge_visits.clone()
-        for pname, sp in profiles:
+        for pname, sp, behind in profiles:
             tree.edge_visits.copy_(base_ev)
+            if behind:
+                ply = tree.states.num_turns - tree.states.num_turns[:, :1]
+                ev = tree.edge_visits
+                ev -= ((ev >= 2) & (ply >= 2)[:, :, None]).to(ev.dtype)
             inputs = descent_inputs(c, sp, tree)
             start_ev = tree.edge_visits.clone()
             got = run_descent(mcts._descend_interior, c, sp, tree, start_ev, inputs)
@@ -417,23 +476,32 @@ def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200):
             result["max_abs_err"] = max(result["max_abs_err"], err)
             depth, active = inputs[1:3]
             leaf_depth = want[1]
-            levels = int(torch.where(active, leaf_depth - depth + (leaf_depth < c.area + 1).long(), 0).sum())
+            capped = leaf_depth < mcts._max_depth(c, sp)
+            levels = int(torch.where(active, leaf_depth - depth + capped.long(), 0).sum())
+            n_caught = int(want[-1].sum())
+            caught_depths = torch.bincount(leaf_depth[want[-1]]).tolist()
             result["flips"] += n_flip
             result["games"] += int(active.sum())
             result["levels"] += levels
             log(
                 f"descent kernel == plain: {label} {pname}: {int(active.sum())} games descending, "
-                f"{levels} levels, max depth {int(leaf_depth.max())}, {n_flip} near-tie act flips"
+                f"{levels} levels, max depth {int(leaf_depth.max())}, {n_caught} catch-ups "
+                f"(by depth of the caught node {caught_depths}), {n_flip} near-tie act flips"
             )
-            if label == timed and pname == "default":
+            if behind and sum(caught_depths[2:]) == 0:
+                raise AssertionError(f"{label} {pname}: no descent stopped at a catch-up two or more levels down")
+            key = timed.get((label, pname))
+            if key is not None:
                 ms, plain_ms = time_descent(c, sp, tree, start_ev, inputs)
                 bound = descent_bound_ms(c, tree, inputs, got)
-                result.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, timed_levels=levels,
-                              shape=[batch, 602, c.policy_size, 4 * max(c.x_size, c.y_size)])
+                result["timed"][key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, timed_levels=levels,
+                                            shape=[batch, max_nodes, c.policy_size,
+                                                   4 * max(c.x_size, c.y_size)])
                 log(
-                    f"  descent per call at {label} ({sims} sims in): kernel {ms * 1e3:.2f} us device, "
-                    f"plain {plain_ms * 1e3:.1f} us wall, bound {bound * 1e3:.3f} us (bytes)"
+                    f"  descent per call at {label} {pname} ({case_sims} sims in): kernel {ms * 1e3:.2f} us "
+                    f"device, plain {plain_ms * 1e3:.1f} us wall, bound {bound * 1e3:.3f} us (bytes)"
                 )
+        tree.edge_visits.copy_(base_ev)
     return result
 
 
@@ -549,46 +617,283 @@ def phase_search(dev, cfg, positions, bench_batch=512, bench_visits=600, ab_batc
             "ab_games": ab_games, "ab_tv": ab_tv}
 
 
-def phase_profile(dev, cfg, batch=512, sims=20):
-    """Where a search's time goes: the wall time of a fresh `sims`-playout
-    search, then the device time of the same search under torch.profiler,
-    its kernel launches, its host syncs and the kernels with the most device
-    time."""
+def phase_selfplay(dev, cfg, batch=512, visits=600, nodes=182):
+    """The slice's main path, the selfplay actor's per-move search: a fresh
+    for_selfplay search of `visits` playouts from the empty board with N =
+    `nodes` slots, its readouts (policy_target, select_moves, root_values),
+    the step, then a search on the reused tree and its readouts. Both
+    kernels' launch counts are reset before and read after; one descent
+    launch per simulation run, and the gather at every search's root and
+    readouts. Timed per move, between device synchronizations, after one
+    untimed fresh search."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.game.board import init_state, legal_mask_flat, step
+    from katacoffee_tpu_torch.ops.descend import descend_interior
+    from katacoffee_tpu_torch.ops.gather import gather_rows
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    sp = SearchParams.for_selfplay()
+    evaluate = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
+    roots = init_state(cfg, batch, dev)
+    hint = torch.full((batch,), -1, dtype=torch.int64, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    mcts.run_search(cfg, sp, evaluate, roots, visits, nodes, device=dev, generator=generator, root_hint=hint)
+    torch.cuda.synchronize()
+
+    def readouts(tree, states, label):
+        target = mcts.policy_target(tree, sp)
+        moves = mcts.select_moves(cfg, sp, tree, generator=generator)
+        values = mcts.root_values(tree)
+        live = ~states.done
+        bidx = torch.arange(batch, device=dev)
+        if not (torch.isfinite(tree.stats).all() and torch.isfinite(target).all()
+                and torch.isfinite(values["root_utility"]).all()):
+            raise AssertionError(f"{label}: non-finite tree stats, policy target or root values")
+        if not torch.allclose(target.sum(-1)[live], torch.ones((), device=dev), atol=1e-5):
+            raise AssertionError(f"{label}: policy targets do not sum to 1")
+        if not legal_mask_flat(cfg, states)[bidx, moves][live].all():
+            raise AssertionError(f"{label}: select_moves chose an illegal move")
+        if not (values["root_visits"][live] == visits + 1).all():
+            raise AssertionError(f"{label}: a root does not have {visits + 1} visits")
+        return moves
+
+    # the backup recomputes one tree level per call, so its calls per
+    # simulation are the batch's deepest path, which sets a playout's host work
+    recomputes = [0]
+    kept = mcts._recompute_node
+
+    def counting(*args, **kwargs):
+        recomputes[0] += 1
+        return kept(*args, **kwargs)
+
+    ok = torch.ones((batch,), dtype=torch.bool, device=dev)
+    mcts._recompute_node = counting
+    try:
+        gather_rows.launches = 0
+        descend_interior.launches = 0
+        t = time.monotonic()
+        tree, diag1 = mcts.run_search(cfg, sp, evaluate, roots, visits, nodes, device=dev, generator=generator,
+                                      root_hint=hint, with_diag=True)
+        torch.cuda.synchronize()
+        fresh_s = time.monotonic() - t
+        fresh_levels = recomputes[0]
+        moves = readouts(tree, roots, "fresh move")
+        after = step(cfg, roots, moves)
+        t = time.monotonic()
+        tree2, diag2 = mcts.run_search(cfg, sp, evaluate, after, visits, nodes, device=dev, generator=generator,
+                                       reuse_tree=tree, reuse_actions=moves, reuse_ok=ok, root_hint=hint,
+                                       with_diag=True)
+        torch.cuda.synchronize()
+        reused_s = time.monotonic() - t
+        reused_levels = recomputes[0] - fresh_levels
+        readouts(tree2, after, "reused move")
+        launches = {"gather_rows": gather_rows.launches, "descend_interior": descend_interior.launches}
+    finally:
+        mcts._recompute_node = kept
+    advance_ms = []
+    for _ in range(3):
+        t = time.monotonic()
+        mcts.advance_root(cfg, sp, evaluate, tree, moves, after, generator=generator, reuse_ok=ok, root_hint=hint)
+        torch.cuda.synchronize()
+        advance_ms.append((time.monotonic() - t) * 1e3)
+
+    sims = diag1["rounds"] + diag2["rounds"]
+    start = diag2["start_visits"]
+    fresh_visits = batch * visits
+    reused_visits = int((tree2.stats[:, 0, mcts.S_VISITS] - start).sum())
+    out = {
+        "launches": launches, "sims": sims, "fresh_s": fresh_s, "reused_s": reused_s,
+        "fresh_vps": fresh_visits / fresh_s, "reused_vps": reused_visits / reused_s,
+        "reused_sims": diag2["rounds"], "mean_start_visits": float(start.mean()),
+        "links": count_links(tree2), "advance_ms": statistics.median(advance_ms),
+        "fresh_levels_per_sim": fresh_levels / diag1["rounds"],
+        "reused_levels_per_sim": reused_levels / diag2["rounds"], "tree": tree2,
+    }
+    log(
+        f"main path (selfplay, B={batch}, {visits} visits, N={nodes}, 2 moves): fresh move "
+        f"{fresh_s * 1e3:.1f} ms, {out['fresh_vps']:.1f} visits/s; reused move {reused_s * 1e3:.1f} ms, "
+        f"{diag2['rounds']} simulations, {reused_visits} new visits, {out['reused_vps']:.1f} visits/s, "
+        f"mean start visits of the reused roots {out['mean_start_visits']:.2f}; {out['links']} "
+        f"transposition links after the second move"
+    )
+    log(f"  backup levels (_recompute_node calls) per simulation: fresh {out['fresh_levels_per_sim']:.2f}, "
+        f"reused {out['reused_levels_per_sim']:.2f}; advance_root alone {out['advance_ms']:.1f} ms (median of 3)")
+    log(f"  launches: descend_interior {launches['descend_interior']} for {sims} simulations run; "
+        f"gather_rows {launches['gather_rows']} ({launches['gather_rows'] / 2:.1f} per search with its "
+        f"readouts)")
+    if launches["descend_interior"] != sims:
+        raise AssertionError(f"descend_interior launched {launches['descend_interior']} times, not once "
+                             f"per simulation run ({sims})")
+    if launches["gather_rows"] == 0:
+        raise AssertionError("gather_rows was not launched on the selfplay path")
+    return out
+
+
+def phase_selfplay_checks(dev, cfg, positions, ab_batch=64, ab_visits=200, tv_batch=8, tv_visits=64):
+    """Under for_selfplay: both kernels against both plain versions at B=64
+    with the same generator seed on both sides (root visits must be
+    identical), and the card against the CPU at float32 on B=8 with the same
+    root draws passed to both (total variation within TV_MAX)."""
+    import torch
+
+    import katacoffee_tpu_torch.search.mcts as mcts
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.game.symmetry import num_symmetries
+    from katacoffee_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    sp = SearchParams.for_selfplay()
+    eval16 = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
+    live = torch.nonzero(~positions.done)[:ab_batch, 0]
+    roots = positions.map(lambda x: x[live])
+    nodes = int(0.3 * ab_visits) + 2
+    kept = (mcts._descend_interior, mcts.gather_rows)
+    visits = {}
+    for name, fns in (("plain", (mcts._descend_interior_plain, gather_rows_plain)), ("kernels", kept)):
+        mcts._descend_interior, mcts.gather_rows = fns
+        try:
+            tree = mcts.run_search(cfg, sp, eval16, roots, ab_visits, nodes, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(5))
+        finally:
+            mcts._descend_interior, mcts.gather_rows = kept
+        if not torch.isfinite(tree.stats).all():
+            raise AssertionError(f"selfplay {name}: non-finite tree stats")
+        visits[name] = mcts.root_visit_counts(tree).clone()
+    vk, vp = visits["kernels"], visits["plain"]
+    games = len(live)
+    identical = int((vk == vp).all(-1).sum())
+    tv = 0.5 * (vk.float() / vk.sum(-1, keepdim=True) - vp.float() / vp.sum(-1, keepdim=True)).abs().sum(-1)
+    log(f"selfplay B={games} {ab_visits} visits N={nodes}, both kernels vs both plain versions: {identical} of "
+        f"{games} games with identical root visits, max total variation {tv.max().item():.4f}")
+    if identical != games:
+        raise AssertionError("selfplay search with the kernels differs from the search with the plain versions")
+
+    live = torch.nonzero(~positions.done)[:tv_batch, 0]
+    roots = positions.map(lambda x: x[live])
+    g = torch.Generator().manual_seed(6)
+    k = min(sp.rootNumSymmetriesToSample, num_symmetries(cfg))
+    draws = mcts.RootDraws(
+        syms=torch.argsort(torch.rand((len(live), num_symmetries(cfg)), generator=g), dim=-1)[:, :k],
+        gamma=torch._standard_gamma(torch.full((len(live), cfg.policy_size), 0.1083), generator=g),
+    )
+    dists = []
+    for d in (dev, torch.device("cpu")):
+        net32 = load_exported_model(MODEL_DIR, d, torch.float32)[0]
+        tree = mcts.run_search(cfg, sp, mcts.make_nn_eval_fn(cfg, net32), roots, tv_visits, device=d,
+                               draws=mcts.RootDraws(*(x.to(d) for x in draws[:2])))
+        v = mcts.root_visit_counts(tree).float().cpu()
+        dists.append(v / v.sum(-1, keepdim=True))
+    card_tv = 0.5 * (dists[0] - dists[1]).abs().sum(-1).max().item()
+    log(f"selfplay B={len(live)} {tv_visits} visits, float32, same root draws: max total-variation card vs cpu "
+        f"{card_tv:.4f} (max {TV_MAX})")
+    if card_tv > TV_MAX:
+        raise AssertionError(f"selfplay root visit distributions differ: TV {card_tv} > {TV_MAX}")
+    return {"ab_identical": identical, "ab_games": games, "ab_tv": tv.max().item(), "card_tv": card_tv}
+
+
+PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_lookup", "_bias_keys", "_bias_avg",
+            "_root_eval", "_tree_from_root_eval", "advance_root")
+
+
+def phase_profile(dev, label, search, sims=20):
+    """Where a search's time goes: the wall time of `search()` (`sims`
+    playouts, ending in a device synchronization), then the same under
+    torch.profiler: the device busy share, kernel launches and host syncs
+    per playout, the launches of each search function (by the nearest
+    labelled caller; "expansion and backup" is `_simulate_once`'s own code,
+    "net" the evaluator), and the kernels with the most device time."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from katacoffee_tpu_torch.search import mcts
+
+    search()
+    t = time.monotonic()
+    search()
+    wall = time.monotonic() - t
+    kept = {name: getattr(mcts, name) for name in PROFILED}
+
+    def labelled(name, fn):
+        def call(*args, **kwargs):
+            with record_function("kc::" + name):
+                return fn(*args, **kwargs)
+        return call
+
+    for name, fn in kept.items():
+        setattr(mcts, name, labelled(name, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            search(labelled)
+    finally:
+        for name, fn in kept.items():
+            setattr(mcts, name, fn)
+    events = prof.key_averages()
+    # the labels also show as ranges on the device's timeline: not kernels
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("kc::")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    device_kernels = sum(e.count for e in kernels)
+    syncs = sum(e.count for e in events if e.key == "aten::_local_scalar_dense")
+    by_phase = collections.Counter()
+    for e in prof.events():
+        if e.name != "cudaLaunchKernel":
+            continue
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("kc::"):
+            p = p.cpu_parent
+        by_phase["expansion and backup" if p is None else p.name[4:]] += 1
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(
+        f"profile {label} {sims} sims: wall {wall:.3f}s unprofiled, device busy {busy:.3f}s "
+        f"({busy / wall:.1%} of the wall), {launches / sims:.0f} cudaLaunchKernel calls and "
+        f"{device_kernels / sims:.0f} device kernels and {syncs / sims:.2f} host reads of a device "
+        f"value (aten::_local_scalar_dense, each a host sync) per simulation"
+    )
+    log("  cudaLaunchKernel per simulation by caller: "
+        + ", ".join(f"{k} {v / sims:.1f}" for k, v in by_phase.most_common()))
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  {e.key[:90]}")
+    return {"launches_per_sim": launches / sims, "syncs_per_sim": syncs / sims, "busy_share": busy / wall,
+            "by_phase": {k: v / sims for k, v in by_phase.items()}}
+
+
+def profile_searches(dev, cfg, reused_tree, batch=512, sims=20):
+    """Profiles of `sims` playouts at B=512 b6c96: a fresh search from the
+    empty board under the default and the selfplay profile, and the
+    continuation of the main path's reused tree (its second move) by
+    `sims` playouts under the selfplay profile."""
+    import torch
 
     from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
     from katacoffee_tpu_torch.game.board import init_state
     from katacoffee_tpu_torch.search import mcts
     from katacoffee_tpu_torch.search.params import SearchParams
 
-    def search():
-        mcts.run_search(cfg, SearchParams(), evaluate, roots, sims, device=dev)
-        torch.cuda.synchronize()
-
     evaluate = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
     roots = init_state(cfg, batch, dev)
-    search()
-    t = time.monotonic()
-    search()
-    wall = time.monotonic() - t
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        search()
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    device_kernels = sum(e.count for e in kernels)
-    syncs = sum(e.count for e in events if e.key == "aten::_local_scalar_dense")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(
-        f"profile B={batch} {sims} sims: wall {wall:.3f}s unprofiled, device busy {busy:.3f}s "
-        f"({busy / wall:.1%} of the wall), {launches / sims:.0f} cudaLaunchKernel calls and "
-        f"{device_kernels / sims:.0f} device kernels and {syncs / sims:.2f} host reads of a device "
-        f"value (aten::_local_scalar_dense, each a host sync) per simulation"
-    )
-    for e in top:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  {e.key[:90]}")
+    out = {}
+    for label, sp in (("default", SearchParams()), ("selfplay", SearchParams.for_selfplay())):
+        def fresh(wrap=lambda name, fn: fn, sp=sp):
+            mcts.run_search(cfg, sp, wrap("net", evaluate), roots, sims, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+
+        out[label] = phase_profile(dev, f"{label} B={batch} fresh", fresh, sims)
+    target = reused_tree.stats[:, 0, mcts.S_VISITS] + sims
+
+    def reused(wrap=lambda name, fn: fn):
+        tree = mcts.Tree(*(x.map(torch.clone) if isinstance(x, tuple) else x.clone() for x in reused_tree))
+        mcts.continue_search(cfg, SearchParams.for_selfplay(), wrap("net", evaluate), tree, sims, target)
+        torch.cuda.synchronize()
+
+    out["selfplay reused"] = phase_profile(dev, f"selfplay B={batch} reused tree", reused, sims)
+    return out
 
 
 def main() -> int:
@@ -626,9 +931,18 @@ def main() -> int:
     positions = random_positions(cfg, 64, seed=0)
     phase_net(dev, cfg, positions)
 
-    log("phase 4: search")
+    log("phase 4: search, default profile")
     search = phase_search(dev, cfg, positions)
-    phase_profile(dev, cfg)
+
+    log("phase 5: the selfplay per-move search (the slice's main path)")
+    selfplay = phase_selfplay(dev, cfg)
+    checks = phase_selfplay_checks(dev, cfg, positions)
+
+    log("phase 6: profiles")
+    profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
+    log("per playout: cudaLaunchKernel " + ", ".join(
+        f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
+        f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
     t = kern["timings"][MAIN_SHAPE]
     gather_entry = {
@@ -636,7 +950,7 @@ def main() -> int:
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/gather_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
-        "launches": search["launches"]["gather_rows"],
+        "launches": selfplay["launches"]["gather_rows"],
         "max_abs_err": kern["max_abs_err"],
         "max_abs_diff_vs_plain": kern["max_abs_err"],
         "ms": t["ms"],
@@ -646,35 +960,43 @@ def main() -> int:
         "library_ms": t["library_ms"],
         "eager_ms": t["eager_ms"],
         "shape": list(MAIN_SHAPE),
-        "launches_per_search": search["per_search"]["gather_rows"],
+        "launches_default_path": search["launches"]["gather_rows"],
+        "launches_per_search_default_path": search["per_search"]["gather_rows"],
         "other_shapes": {
             str(list(s)): v for s, v in kern["timings"].items() if s != MAIN_SHAPE
         },
     }
+    timed = desc["timed"]["selfplay"]
     descend_entry = {
         "name": "descend_interior",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/descend_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
         "also_replaces": "katacoffee_tpu/search/mcts.py:1267",
-        "launches": search["launches"]["descend_interior"],
+        "launches": selfplay["launches"]["descend_interior"],
         "max_abs_err": desc["max_abs_err"],
-        "ms": desc["ms"],
-        "plain_ms": desc["plain_ms"],
-        "bound_ms": desc["bound_ms"],
+        "ms": timed["ms"],
+        "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "shape": desc["shape"],
-        "timed_levels": desc["timed_levels"],
-        "launches_per_search": search["per_search"]["descend_interior"],
+        "shape": timed["shape"],
+        "timed_levels": timed["timed_levels"],
+        "default_profile": desc["timed"]["default"],
+        "simulations_run": selfplay["sims"],
+        "launches_default_path": search["launches"]["descend_interior"],
         "near_tie_flips": desc["flips"],
         "games_compared": desc["games"],
         "levels_compared": desc["levels"],
         "ab_identical_games": search["ab_identical"],
         "ab_games": search["ab_games"],
         "ab_max_tv": search["ab_tv"],
+        "selfplay_ab_identical_games": checks["ab_identical"],
+        "selfplay_ab_games": checks["ab_games"],
+        "selfplay_ab_max_tv": checks["ab_tv"],
     }
-    log(f"phase 5: done; B=512 600-visit search {search['vps']:.1f} visits/s")
+    log(f"phase 7: done; default B=512 600-visit search {search['vps']:.1f} visits/s; selfplay fresh move "
+        f"{selfplay['fresh_vps']:.1f} visits/s, reused move {selfplay['reused_vps']:.1f} visits/s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)
     print(json.dumps({

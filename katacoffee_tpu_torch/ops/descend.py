@@ -2,9 +2,9 @@
 after the root level down to its leaf.
 
 The port of the interior levels of `_simulate_once` (the while_loop `body`
-at `katacoffee_tpu/search/mcts.py:1267`) together with the child-stats
-gather they run per level (the Pallas kernel `_gather_kernel`,
-`katacoffee_tpu/ops/gather.py:39`). The plain version is
+at `katacoffee_tpu/search/mcts.py:1267`, with graph search's edge-visit
+catch-up) together with the child-stats gather they run per level (the
+Pallas kernel `_gather_kernel`, `katacoffee_tpu/ops/gather.py:39`). The plain version is
 `katacoffee_tpu_torch.search.mcts._descend_interior_plain`, and
 `mcts._descend_interior` chooses between the two by device: CPU tensors take
 the plain version, CUDA tensors come here. `descend_interior` launches the
@@ -33,6 +33,11 @@ EPS = 1e-8  # search/mcts.py _EPS
 # 0.5, -0.5 and -1 call sqrt, rsqrt and reciprocal); the kernel's codes.
 _POW_MODES = {0.0: 1, 1.0: 2, 2.0: 3, 3.0: 4, 0.5: 5, -0.5: 6, -1.0: 7, -2.0: 8}
 _FPU_PARENT, _FPU_VISITED_POLICY, _FPU_PARENT_WEIGHT = range(3)
+# The kernel's argument layout: Select's float and int constants, and the
+# tensors kc_descend_interior takes.
+_NUM_FLOATS = 16
+_NUM_INTS = 4
+_NUM_POINTERS = 21
 
 
 def select_constants(sp) -> tuple[np.ndarray, np.ndarray]:
@@ -70,16 +75,27 @@ def select_constants(sp) -> tuple[np.ndarray, np.ndarray]:
         int(sp.cpuctUtilityStdevScale != 0.0),
         fpu_mode,
         _POW_MODES.get(float(sp.fpuParentWeightByVisitedPolicyPow), 0),
+        int(sp.useGraphSearch),
     ], dtype=np.int32)
+    assert (floats.size, ints.size) == (_NUM_FLOATS, _NUM_INTS)
     return floats, ints
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernel() -> ctypes.CDLL:
-    """Build (once) and load the CUDA kernel's library."""
+    """Build (once) and load the CUDA kernel's library; raises if its
+    argument layout is not the one `descend_interior` passes."""
     lib = load_library(SOURCE)
+    lib.kc_descend_layout.argtypes = []
+    lib.kc_descend_layout.restype = ctypes.c_int
+    want = _NUM_FLOATS * 10000 + _NUM_INTS * 100 + _NUM_POINTERS
+    if lib.kc_descend_layout() != want:
+        raise RuntimeError(
+            f"descend_interior: the kernel's argument layout is {lib.kc_descend_layout()}, "
+            f"the wrapper passes {want}"
+        )
     lib.kc_descend_interior.argtypes = (
-        [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * _NUM_POINTERS + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
     )
     lib.kc_descend_interior.restype = ctypes.c_int
     lib.kc_descend_error_string.argtypes = [ctypes.c_int]
@@ -98,14 +114,18 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None
 
 def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, acts, scratch):
     """One launch of the fused interior descent; returns (leaf, leaf_depth)
-    [B] int64 and updates `tree.edge_visits`, `path`, `acts` and `scratch`
-    in place, as `mcts._descend_interior_plain` does.
+    [B] int64 and `caught` [B] bool (stopped by a graph-search catch-up) and
+    updates `tree.edge_visits`, `path`, `acts` and `scratch` in place, as
+    `mcts._descend_interior_plain` does.
 
     `cand` is the int32 candidate table [area + 1, 5, C]; `tree` a search
     Tree, `scratch` its LevelScratch [B, D, C, ...]. Every tensor must lie on
-    one CUDA device, contiguous, with the Tree's dtypes; anything else, or a
-    kernel that fails to build or launch, raises. Counted in
+    one CUDA device, contiguous, with the Tree's dtypes; anything else, a
+    catch-up leak probability (it draws inside the loop), or a kernel that
+    fails to build or launch, raises. Counted in
     `descend_interior.launches`."""
+    if sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0:
+        raise ValueError("descend_interior: graphSearchCatchUpLeakProb > 0 is not taken")
     B, N, A = tree.children.shape
     D, C = scratch.child_c.shape[1:]
     if not 1 <= C <= MAX_LANES:
@@ -147,11 +167,12 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
             return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
     leaf = torch.empty((B,), dtype=torch.int64, device=dev)
     leaf_depth = torch.empty((B,), dtype=torch.int64, device=dev)
+    caught = torch.empty((B,), dtype=torch.bool, device=dev)
     floats, ints = select_constants(sp)
     lib = load_kernel()
     err = lib.kc_descend_interior(
         *(t.data_ptr() for _, t, _, _ in args),
-        leaf.data_ptr(), leaf_depth.data_ptr(),
+        leaf.data_ptr(), leaf_depth.data_ptr(), caught.data_ptr(),
         B, N, A, C, D, area,
         floats.ctypes.data, ints.ctypes.data,
         torch.cuda.current_stream().cuda_stream,
@@ -159,7 +180,7 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
     if err != 0:
         raise RuntimeError(f"descend_interior kernel launch failed: {lib.kc_descend_error_string(err).decode()}")
     descend_interior.launches += 1
-    return leaf, leaf_depth
+    return leaf, leaf_depth, caught
 
 
 descend_interior.launches = 0

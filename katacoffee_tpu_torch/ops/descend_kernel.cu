@@ -17,11 +17,15 @@
 //     now into registers;
 // then the edge stats (`_edge_stats_from_raw`) and the PUCT score
 // (`_selection_compact`) of each lane, two warp sums and a warp argmax that
-// keeps the lowest lane on ties, as torch.argmax does. Lane 0 records the
-// chosen lane in acts[depth] (also where the child is missing: the expansion
-// reads it), writes the level's lanes to the scratch slot depth-1 for the
-// backup, counts the edge visit when it moves on, and the warp steps to the
-// child. It stops at a terminal node, a missing child or depth == D.
+// keeps the lowest lane on ties, as torch.argmax does. Under graph search
+// the chosen edge is caught up (`want_catch_at`, the JAX package's
+// search/mcts.py:1209, used at :1333) when it has fewer visits than its
+// child: has_child && (float)edge_visits < child S_VISITS - 0.5f. Lane 0
+// records the chosen lane in acts[depth] (also where the child is missing or
+// caught up: the expansion reads it), writes the level's lanes to the
+// scratch slot depth-1 for the backup, counts the edge visit when it moves
+// on, marks the game caught on a catch-up, and the warp steps to the child.
+// It stops at a terminal node, a missing child, a catch-up or depth == D.
 //
 // Numerics: every operation is the plain torch version's, in its order, each
 // rounded to float32 (built with --fmad=false, IEEE division and square
@@ -69,10 +73,11 @@ struct Select {
   float fpu_reduction_max, fpu_loss_prop, neg_wl_factor;
   float fpu_parent_weight, one_minus_fpu_parent_weight, visited_pow;
   float eps;
-  int stdev_on, fpu_mode, pow_mode;
+  int stdev_on, fpu_mode, pow_mode, graph;
 };
 constexpr int kNumFloats = 16;
-constexpr int kNumInts = 3;
+constexpr int kNumInts = 4;
+constexpr int kNumPointers = 21;  // kc_descend_interior's tensor arguments
 
 struct Args {
   const long long* last_spot;     // [B, N]
@@ -95,6 +100,7 @@ struct Args {
   float* ev_c;                    // [B, D, C]
   long long* leaf;                // [B]
   long long* leaf_depth;          // [B]
+  unsigned char* caught;          // [B] bool, stopped by a catch-up
   int b, n, a, c, d, area;
 };
 
@@ -139,6 +145,7 @@ descend_interior_kernel(Args g, Select s) {
   long long node = g.node0[b];
   long long depth = g.depth0[b];
   bool active = g.active0[b] != 0;
+  bool caught = false;
 
   while (active) {
     const long long bn = row0 + node;
@@ -151,7 +158,7 @@ descend_interior_kernel(Args g, Select s) {
     const long long slot = (static_cast<long long>(b) * g.d + (depth - 1)) * C;
 
     int cand[kSlots], child[kSlots];
-    float pr[kSlots], w[kSlots], lp_visited[kSlots], q_child[kSlots];
+    float pr[kSlots], w[kSlots], lp_visited[kSlots], q_child[kSlots], ev[kSlots], cvis[kSlots];
     bool live[kSlots];
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
@@ -162,14 +169,15 @@ descend_interior_kernel(Args g, Select s) {
       w[k] = 0.0f;
       lp_visited[k] = 0.0f;
       q_child[k] = 0.0f;
+      ev[k] = 0.0f;
+      cvis[k] = 0.0f;
       live[k] = false;
       if (c >= C) continue;
       cand[k] = __ldg(cand_row + c);
-      float ev = 0.0f;
       if (cand[k] >= 0) {
         const long long e = bn * g.a + cand[k];
         child[k] = __ldg(g.children + e);
-        ev = static_cast<float>(g.edge_visits[e]);
+        ev[k] = static_cast<float>(g.edge_visits[e]);
         pr[k] = __ldg(g.prior + e);
       }
       float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
@@ -182,10 +190,11 @@ descend_interior_kernel(Args g, Select s) {
       g.cs_raw[(slot + c) * 2 + 1] = hi;
       g.prior_c[slot + c] = pr[k];
       g.child_c[slot + c] = child[k];
-      g.ev_c[slot + c] = ev;
+      g.ev_c[slot + c] = ev[k];
       // _edge_stats_from_raw: lo = (visits, w, wsq, u)
-      const float scale = ev / fmaxf(lo.x, 1.0f);
-      live[k] = child[k] >= 0 && ev > 0.0f;
+      cvis[k] = lo.x;
+      const float scale = ev[k] / fmaxf(lo.x, 1.0f);
+      live[k] = child[k] >= 0 && ev[k] > 0.0f;
       w[k] = live[k] ? lo.y * scale : 0.0f;
       q_child[k] = -lo.w;
       lp_visited[k] = live[k] ? fmaxf(pr[k], 0.0f) : 0.0f;
@@ -248,12 +257,17 @@ descend_interior_kernel(Args g, Select s) {
         best_c = oc;
       }
     }
-    const int k_best = best_c >> 5;  // the same in every lane
-    const int sel_child = __shfl_sync(kFull, k_best == 0 ? child[0] : child[1], best_c & 31);
-    const int sel_cand = __shfl_sync(kFull, k_best == 0 ? cand[0] : cand[1], best_c & 31);
+    const bool hi = (best_c >> 5) != 0;  // the same in every lane
+    const int src = best_c & 31;
+    const int sel_child = __shfl_sync(kFull, hi ? child[1] : child[0], src);
+    const int sel_cand = __shfl_sync(kFull, hi ? cand[1] : cand[0], src);
+    const float sel_ev = __shfl_sync(kFull, hi ? ev[1] : ev[0], src);
+    const float sel_cvis = __shfl_sync(kFull, hi ? cvis[1] : cvis[0], src);
 
+    // graph search's edge-visit catch-up (_want_catch)
+    const bool catch_up = s.graph && sel_child >= 0 && sel_ev < sel_cvis - 0.5f;
     const long long prow = static_cast<long long>(b) * (g.d + 1);
-    const bool move_on = sel_child >= 0;
+    const bool move_on = sel_child >= 0 && !catch_up;
     if (lane == 0) {
       g.acts[prow + depth] = best_c;
       if (move_on) {
@@ -261,6 +275,7 @@ descend_interior_kernel(Args g, Select s) {
         g.path[prow + depth + 1] = sel_child;
       }
     }
+    caught = catch_up;
     if (!move_on) break;
     node = sel_child;
     depth += 1;
@@ -269,10 +284,15 @@ descend_interior_kernel(Args g, Select s) {
   if (lane == 0) {
     g.leaf[b] = node;
     g.leaf_depth[b] = depth;
+    g.caught[b] = caught ? 1 : 0;
   }
 }
 
 }  // namespace
+
+// The argument layout the wrapper must pass: kNumFloats * 10000 +
+// kNumInts * 100 + kNumPointers.
+extern "C" int kc_descend_layout() { return kNumFloats * 10000 + kNumInts * 100 + kNumPointers; }
 
 // Launches the descent on `stream`; returns the cudaError_t of the launch.
 // `f` holds the kNumFloats Select floats and `i` the kNumInts ints, in
@@ -282,7 +302,7 @@ extern "C" int kc_descend_interior(
     const void* children, void* edge_visits, const void* prior, const void* stats,
     const void* self_stats, const void* node0, const void* depth0, const void* active0,
     void* path, void* acts, void* cs_raw, void* prior_c, void* child_c, void* ev_c,
-    void* leaf, void* leaf_depth, int b, int n, int a, int c, int d, int area,
+    void* leaf, void* leaf_depth, void* caught, int b, int n, int a, int c, int d, int area,
     const float* f, const int* i, void* stream) {
   if (b == 0) return 0;
   if (c < 1 || c >= 32 * kSlots || d < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -296,9 +316,9 @@ extern "C" int kc_descend_interior(
          static_cast<float4*>(cs_raw), static_cast<float*>(prior_c),
          static_cast<int*>(child_c), static_cast<float*>(ev_c),
          static_cast<long long*>(leaf), static_cast<long long*>(leaf_depth),
-         b, n, a, c, d, area};
+         static_cast<unsigned char*>(caught), b, n, a, c, d, area};
   Select s{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
-           f[11], f[12], f[13], f[14], f[15], i[0], i[1], i[2]};
+           f[11], f[12], f[13], f[14], f[15], i[0], i[1], i[2], i[3]};
   static_assert(sizeof(Select) == (kNumFloats + kNumInts) * 4, "Select layout");
   const int blocks = (b + kWarpsPerBlock - 1) / kWarpsPerBlock;
   descend_interior_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -1,34 +1,45 @@
 """Batched array-of-trees MCTS with KataGo semantics, in PyTorch.
 
-The port of `katacoffee_tpu/search/mcts.py` for a fresh tree and the default
-`SearchParams()` profile: B independent searches advance in lockstep, one
-playout per game per simulation, so the NN forward always sees a full [B]
-batch. Node statistics are packed in `Tree.stats [B, N, 8]`. On the card
-two hand-written CUDA kernels carry the search: the interior levels of each
-playout's descent are one launch of `ops.descend.descend_interior` (the
-child-stats gather fused in), and the root's full-width child-stats gather
-and the readouts go through `ops.gather.gather_rows`. CPU tensors take the
-plain torch versions.
+The port of `katacoffee_tpu/search/mcts.py`: B independent searches advance
+in lockstep, one playout per game per simulation, so the NN forward always
+sees a full [B] batch. Node statistics are packed in `Tree.stats [B, N, 8]`.
+On the card two hand-written CUDA kernels carry the search: the interior
+levels of each playout's descent are one launch of
+`ops.descend.descend_interior` (the child-stats gather and the graph-search
+catch-up fused in), and the root's full-width child-stats gather and the
+readouts go through `ops.gather.gather_rows`. CPU tensors take the plain
+torch versions.
 
-What the slice implements (file:line cites are the JAX package's):
+What the port implements (file:line cites are the JAX package's):
   * PUCT selection with FPU, the cpuct log term, the parent-utility stdev
-    factor and root forced playouts (`_select_action`, :1030), and its
-    compact-lane form for interior nodes (`_selection_compact`, from
-    `_select_action_compact`, :712);
-  * value aggregation with value-based downweighting (`_recompute_node`,
-    :2205);
-  * one playout (`_simulate_once`, :1167): descent (the root level at full
-    width, interior levels on the <= 4*max(X,Y) candidate lanes of the
-    node's last-move line), expansion (step, NN eval, node allocation) and
-    backup, with the root child-stats cache carried across simulations;
-  * `run_search` on a fresh tree (:2371) and the root readouts.
+    factor, root forced playouts and the rootHintLoc forcing
+    (`_select_action`, :1030), and its compact-lane form for interior nodes
+    (`_selection_compact`, from `_select_action_compact`, :712);
+  * the root prior (`_make_root_prior`, :938): the early-game policy
+    temperature, Dirichlet noise and the hint's 2 % shift; the root
+    evaluation averaged over sampled symmetries (`_root_eval`, :442);
+  * graph search: transposition links by situation hash, the edge-visit
+    catch-up (`want_catch_at`, :1209) and maxPlayoutDepthProp;
+  * value aggregation with value-based downweighting, the root-noise weight
+    subtraction and the subtree value bias (`_recompute_node`, :2205);
+  * one playout (`_simulate_once`, :1167) with its `active` mask, the whole
+    search on a fresh or a reused tree (`run_search`, :2371;
+    `advance_root`, :2643; `continue_search`, :2561) and the readouts
+    (`select_moves` with LCB and temperatures, :2976; `policy_target`,
+    :3057).
 
-What it does not implement raises NotImplementedError naming the setting:
-graph search, root noise, sampled root symmetries, subtree value bias, noise
-pruning, uncertainty weighting, root policy temperature and optimism, root
-symmetry pruning, parallel playouts, tree reuse, root hints, avoid masks and
-randomized eval symmetries. With those off the search draws no random
-numbers, so it is deterministic.
+Randomness: a search draws only at its root (the sampled symmetries and the
+Dirichlet noise; `select_moves` draws its Gumbel noise). Every draw comes
+from the `torch.Generator` the caller passes, on the search's device, or is
+passed in as a tensor (`RootDraws`, `gumbel`), as the tests do with the JAX
+package's draws. What the port does not implement raises NotImplementedError
+naming the setting (`_check_supported`).
+
+Rounding: the port rounds as torch does, not as XLA does (torch's
+`pow(x, 0.5)` is a square root, row sums add in another order), so a
+recomputed stats row agrees with JAX's within a few float32 ulps and a
+descent may part from JAX's only where JAX's two best scores tie (PERF.md
+section 2).
 
 Tensors of a `Tree` are updated in place. Perspective convention: node
 utilities are stored from the viewpoint of the player to move at that node
@@ -45,6 +56,7 @@ import numpy as np
 import torch
 
 from katacoffee_tpu_torch.device import resolve_device
+from katacoffee_tpu_torch.game import symmetry as S
 from katacoffee_tpu_torch.game.board import (
     GameConfig,
     GameState,
@@ -60,6 +72,10 @@ from katacoffee_tpu_torch.search.params import SearchParams
 
 _EPS = 1e-8
 
+# Subtree-value-bias table slots per game (hashed (mover, prev, prev2) keys,
+# as the JAX package keys them; collisions blur the bias, a heuristic).
+BIAS_SLOTS = 16384
+
 # Channel layout of Tree.stats [B, N, NUM_STATS] (negamax perspective).
 S_VISITS, S_W, S_WSQ, S_U, S_USQ, S_WL, S_DRAW, S_PAD = range(8)
 NUM_STATS = 8
@@ -70,8 +86,8 @@ NUM_SELF = 4
 
 class Tree(NamedTuple):
     """Array-of-trees state. Leading dims: [B, N] (games x node slots).
-    Every field of the JAX package's Tree is kept; the ones of mechanisms
-    this slice does not run hold their neutral values."""
+    Every field of the JAX package's Tree is kept; `policy_rank` (noise
+    pruning, not ported) holds its neutral value."""
 
     states: GameState  # fields [B, N, ...]
     stats: torch.Tensor  # [B, N, 8] f32, S_* channels
@@ -86,11 +102,11 @@ class Tree(NamedTuple):
     node_count: torch.Tensor  # [B] int64
     sit_hash: torch.Tensor  # [B, N, 2] int64 words of the uint32 situation hash
     policy_rank: torch.Tensor  # [B, 1, 1] int32 (noise pruning off)
-    bias_key: torch.Tensor  # [B, N] int64
-    last_bias_delta: torch.Tensor  # [B, N] f32
+    bias_key: torch.Tensor  # [B, N] int64 subtree-value-bias slot
+    last_bias_delta: torch.Tensor  # [B, N] f32 the node's last table contribution
     last_bias_weight: torch.Tensor  # [B, N] f32
-    bias_table: torch.Tensor  # [B, 1, 2] f32 (subtree value bias off)
-    root_hint: torch.Tensor  # [B] int64, -1 = none
+    bias_table: torch.Tensor  # [B, K, 2] f32 (deltaUtilitySum, weightSum); K = 1 with the bias off
+    root_hint: torch.Tensor  # [B] int64 rootHintLoc action, -1 = none
 
 
 class EvalResult(NamedTuple):
@@ -106,6 +122,19 @@ class EvalResult(NamedTuple):
 EvalFn = Callable[[GameState], EvalResult]
 
 
+class RootDraws(NamedTuple):
+    """A search's root draws, passed in instead of drawn from the generator
+    (the tests pass the JAX package's): `syms` [B, k] the k distinct root
+    symmetries of each game (rootNumSymmetriesToSample), `gamma` [B, A] the
+    gamma sample of the Dirichlet noise in the new root prior, and
+    `gamma_reused` [B, A] the one in a reused root's prior (`advance_root`).
+    A field left None is drawn from the generator when it is needed."""
+
+    syms: torch.Tensor | None = None
+    gamma: torch.Tensor | None = None
+    gamma_reused: torch.Tensor | None = None
+
+
 # ---------------------------------------------------------------------------
 # Supported settings
 # ---------------------------------------------------------------------------
@@ -113,18 +142,13 @@ EvalFn = Callable[[GameState], EvalResult]
 
 def _check_supported(sp: SearchParams) -> None:
     unsupported = {
-        "useGraphSearch": sp.useGraphSearch,
-        "rootNoiseEnabled": sp.rootNoiseEnabled,
-        "rootNumSymmetriesToSample>1": sp.rootNumSymmetriesToSample > 1,
-        "subtreeValueBiasFactor!=0": sp.subtreeValueBiasFactor != 0.0,
         "useNoisePruning": sp.useNoisePruning,
         "useUncertainty": sp.useUncertainty,
-        "rootPolicyTemperature!=1": sp.rootPolicyTemperature != 1.0,
-        "rootPolicyTemperatureEarly!=1": sp.rootPolicyTemperatureEarly != 1.0,
         "policyOptimism!=0": sp.policyOptimism != 0.0,
         "rootPolicyOptimism!=0": sp.rootPolicyOptimism != 0.0,
         "rootSymmetryPruning": sp.rootSymmetryPruning,
         "numSearchThreads>1": sp.numSearchThreads > 1,
+        "graphSearchCatchUpLeakProb>0": sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0,
     }
     for flag, on in unsupported.items():
         if on:
@@ -190,6 +214,36 @@ def make_nn_eval_fn(cfg: GameConfig, model, symmetry_randomize: bool = False) ->
     return fn
 
 
+def _need_generator(generator, what: str) -> torch.Generator:
+    if generator is None:
+        raise ValueError(f"katacoffee_tpu_torch search: {what} draws random numbers; pass a torch.Generator")
+    return generator
+
+
+def _root_eval(cfg, sp: SearchParams, eval_fn: EvalFn, states: GameState, generator=None,
+               syms: torch.Tensor | None = None) -> EvalResult:
+    """Root evaluation under rootNumSymmetriesToSample = k: k distinct
+    dihedral symmetries per game (`syms` [B, k], else the first k of a
+    random permutation drawn from `generator`), the root evaluated under
+    each, each policy transformed back, and every output averaged."""
+    k = min(int(sp.rootNumSymmetriesToSample), S.num_symmetries(cfg))
+    if k <= 1:
+        return eval_fn(states)
+    if syms is None:
+        g = _need_generator(generator, "rootNumSymmetriesToSample > 1")
+        B = states.board.shape[0]
+        syms = torch.argsort(
+            torch.rand((B, S.num_symmetries(cfg)), generator=g, device=states.board.device), dim=-1
+        )[:, :k]
+    acc = None
+    for j in range(k):
+        sym = syms[:, j].to(states.board.device)
+        res = eval_fn(S.apply_state(cfg, sym, states))
+        res = res._replace(policy=S.apply_policy(cfg, S.invert(sym), res.policy))
+        acc = res if acc is None else EvalResult(*(a + b for a, b in zip(acc, res)))
+    return EvalResult(*(a / k for a in acc))
+
+
 # ---------------------------------------------------------------------------
 # Small helpers
 # ---------------------------------------------------------------------------
@@ -209,6 +263,28 @@ def _terminal_utility(states: GameState) -> torch.Tensor:
 
 def _stats_row(visits, w, wsq, u, usq, wl, draw):
     return torch.stack([visits, w, wsq, u, usq, wl, draw, torch.zeros_like(w)], dim=-1)
+
+
+def _bias_keys(cfg: GameConfig, states: GameState) -> torch.Tensor:
+    """[B] subtree-value-bias table slot from (mover of the last move, the
+    last move, the move before it): the JAX package's uint32
+    multiply-and-shift hash, in int64 with the product cut to 32 bits."""
+    sentinel = 4 * cfg.area  # no move
+    s0, s1 = states.recent_spots[..., 0], states.recent_spots[..., 1]
+    a0 = torch.where(s0 >= 0, states.recent_dirs[..., 0].clamp(max=3) * cfg.area + s0, sentinel)
+    a1 = torch.where(s1 >= 0, states.recent_dirs[..., 1].clamp(max=3) * cfg.area + s1, sentinel)
+    mover = (3 - states.to_move.to(torch.int64)) - 1
+    k = (a0 * (sentinel + 1) + a1) * 2 + mover
+    return (((k * 2654435761) & 0xFFFFFFFF) >> 18) % BIAS_SLOTS
+
+
+def _bias_avg(sp: SearchParams, tree: Tree, bidx, key) -> torch.Tensor:
+    """factor * the entry's average where the entry has weight
+    (addLeafValue)."""
+    entry = tree.bias_table[bidx, key]  # [B, 2]
+    return torch.where(
+        entry[:, 1] > 0.001, sp.subtreeValueBiasFactor * entry[:, 0] / entry[:, 1].clamp(min=1e-9), 0.0
+    )
 
 
 def _gather_child_stats(tree: Tree, bidx, node) -> torch.Tensor:
@@ -231,7 +307,8 @@ def _edge_stats_from_raw(tree: Tree, bidx, node, cs_raw, child_row=None, evis_ro
     usq = torch.where(live, cs_raw[..., S_USQ], 0.0)
     wl = torch.where(live, -cs_raw[..., S_WL], 0.0)
     draw = torch.where(live, cs_raw[..., S_DRAW], 0.0)
-    return dict(live=live, w=w, wsq=wsq, u=u, usq=usq, wl=wl, draw=draw, evis=evis)
+    return dict(live=live, w=w, wsq=wsq, u=u, usq=usq, wl=wl, draw=draw, evis=evis,
+                cvis=cs_raw[..., S_VISITS])
 
 
 def _child_edge_stats(tree: Tree, bidx, node) -> dict:
@@ -379,6 +456,16 @@ def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None) -> torc
         forced = torch.sqrt(sp.rootDesiredPerChildVisitsCoeff * legal_prior * total_child_w[:, None])
         force = has_child & (child_w < forced) & (child_w > 0.0) & is_root[:, None]
         selection = torch.where(force, math.inf, selection)
+    # rootHintLoc forced selection (searchexplorehelpers.cpp:155-168): the
+    # hint move is forced while its weight (plus about one visit's worth)
+    # trails 80% of the heaviest sibling's; a no-op where root_hint is -1
+    hint_safe = tree.root_hint.clamp(min=0)
+    has_hint = (tree.root_hint >= 0) & is_root
+    pwpv = node_stats[:, S_W] / node_stats[:, S_VISITS].clamp(min=1.0)
+    hint_w = child_w[bidx, hint_safe]
+    avg_wpv = (hint_w + pwpv) / (cs["cvis"][bidx, hint_safe] + 1.0)
+    force_hint = has_hint & (hint_w + avg_wpv < 0.8 * child_w.amax(-1)) & (prior[bidx, hint_safe] >= 0)
+    selection[bidx, hint_safe] = torch.where(force_hint, math.inf, selection[bidx, hint_safe])
     return torch.argmax(selection, dim=-1)
 
 
@@ -388,30 +475,84 @@ def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None) -> torc
 
 
 def init_tree(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, root_states: GameState,
-              max_nodes: int) -> Tree:
-    """Allocate trees and evaluate the roots (beginSearch without reuse),
-    under one root symmetry (`_root_eval` with k = 1)."""
+              max_nodes: int, *, generator: torch.Generator | None = None, draws: RootDraws | None = None,
+              turn_number: torch.Tensor | None = None, root_hint: torch.Tensor | None = None) -> Tree:
+    """Allocate trees and evaluate the roots (beginSearch without reuse).
+    `turn_number` [B] drives the early-game temperature (default the roots'
+    num_turns); `root_hint` [B] is each game's rootHintLoc action (-1 none).
+    Root draws come from `draws` or `generator`."""
     _check_supported(sp)
-    return _tree_from_root_eval(cfg, sp, root_states, eval_fn(root_states), max_nodes)
+    draws = RootDraws() if draws is None else draws
+    res = _root_eval(cfg, sp, eval_fn, root_states, generator, draws.syms)
+    return _tree_from_root_eval(cfg, sp, root_states, res, max_nodes, generator=generator,
+                                gamma=draws.gamma, turn_number=turn_number, root_hint=root_hint)
 
 
-def _make_root_prior(policy, legal) -> torch.Tensor:
-    """Root policy with temperature 1, no noise, no hint, no avoid mask and
-    no symmetry pruning: the NN policy on legal moves, -1 elsewhere."""
+def _add_dirichlet_noise(sp: SearchParams, policy, legal, generator=None, gamma=None) -> torch.Tensor:
+    """KataGo's alpha allocation, half uniform and half shaped by the excess
+    log-policy, then the Dirichlet mix (searchhelpers.cpp
+    computeDirichletAlphaDistribution, addDirichletNoise). `gamma` [B, A] is
+    the gamma sample at those alphas, else drawn from `generator`."""
+    legal_f = legal.to(torch.float32)
+    n_legal = legal_f.sum(-1, keepdim=True).clamp(min=1.0)
+    logp = torch.log(policy.clamp(max=0.01) + 1e-20)
+    log_mean = torch.where(legal, logp, 0.0).sum(-1, keepdim=True) / n_legal
+    excess = torch.where(legal, (logp - log_mean).clamp(min=0.0), 0.0)
+    excess_sum = excess.sum(-1, keepdim=True)
+    shaped = torch.where(excess_sum > 0, excess / excess_sum.clamp(min=1e-20), legal_f / n_legal)
+    alpha = (0.5 * legal_f / n_legal + 0.5 * shaped) * sp.rootDirichletNoiseTotalConcentration
+    if gamma is None:
+        g = _need_generator(generator, "rootNoiseEnabled")
+        gamma = torch._standard_gamma(alpha.clamp(min=1e-10), generator=g)
+    gamma = torch.where(legal & (alpha > 0), gamma.to(policy.device), 0.0)
+    noise = gamma / gamma.sum(-1, keepdim=True).clamp(min=1e-20)
+    w = sp.rootDirichletNoiseWeight
+    return torch.where(legal, noise * w + policy * (1.0 - w), 0.0)
+
+
+def _make_root_prior(cfg: GameConfig, sp: SearchParams, policy, legal, root_states: GameState,
+                     generator=None, gamma=None, turn_number=None, root_hint=None) -> torch.Tensor:
+    """Root policy (searchhelpers.cpp maybeAddPolicyNoiseAndTemp): the
+    early-game interpolated temperature, Dirichlet noise, and the
+    rootHintLoc shift of 2 % of the legal mass onto the hint move
+    (searchhelpers.cpp:206-218); -1 on illegal moves."""
+    if turn_number is None:
+        turn_number = root_states.num_turns
+    turn_number = turn_number.to(torch.float32)
+    if sp.rootPolicyTemperature != 1.0 or sp.rootPolicyTemperatureEarly != 1.0:
+        frac = 0.5 ** (turn_number / sp.chosenMoveTemperatureHalflife)
+        temp = sp.rootPolicyTemperature + frac * (sp.rootPolicyTemperatureEarly - sp.rootPolicyTemperature)
+        logp = torch.log(policy.clamp(min=1e-30)) / temp[:, None]
+        policy = torch.where(legal, _softmax(torch.where(legal, logp, -math.inf)), 0.0)
+    if sp.rootNoiseEnabled:
+        policy = _add_dirichlet_noise(sp, policy, legal, generator, gamma)
+    if root_hint is not None:
+        bidx = torch.arange(policy.shape[0], device=policy.device)
+        hint_safe = root_hint.clamp(min=0)
+        hint_legal = (root_hint >= 0) & legal[bidx, hint_safe]
+        prop = 0.02
+        shifted = policy * (1.0 - prop)
+        shifted[bidx, hint_safe] += torch.where(legal, policy, 0.0).sum(-1) * prop
+        policy = torch.where(hint_legal[:, None], shifted, policy)
     return torch.where(legal, policy, -1.0)
 
 
-def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameState,
-                         res: EvalResult, max_nodes: int) -> Tree:
+def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameState, res: EvalResult,
+                         max_nodes: int, *, generator=None, gamma=None, turn_number=None,
+                         root_hint=None) -> Tree:
     B = root_states.board.shape[0]
     N = max_nodes
     A = cfg.policy_size
     dev = root_states.board.device
+    if root_hint is None:
+        root_hint = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    root_hint = root_hint.to(device=dev, dtype=torch.int64)
 
     states = root_states.map(lambda x: x[:, None].expand((B, N) + x.shape[1:]).clone())
     legal = legal_mask_flat(cfg, root_states)
     raw_prior = torch.where(legal, res.policy, -1.0)
-    root_prior = _make_root_prior(res.policy, legal)
+    root_prior = _make_root_prior(cfg, sp, res.policy, legal, root_states, generator, gamma, turn_number,
+                                  root_hint)
 
     root_term = root_states.done
     term_util = _terminal_utility(root_states)
@@ -420,6 +561,7 @@ def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameSta
     d0 = torch.where(root_term, (root_states.winner == 0).to(torch.float32), res.draw)
     w0 = torch.where(root_term, 1.0, _eval_weight(sp, res.shortterm_error))
     one = torch.ones((B,), dtype=torch.float32, device=dev)
+    use_bias = sp.subtreeValueBiasFactor != 0.0
 
     def rows(width, dtype, fill, first):
         t = torch.full((B, N) + width, fill, dtype=dtype, device=dev)
@@ -441,11 +583,11 @@ def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameSta
         node_count=torch.ones((B,), dtype=torch.int64, device=dev),
         sit_hash=rows((2,), torch.int64, 0, situation_hash(cfg, root_states)),
         policy_rank=torch.zeros((B, 1, 1), dtype=torch.int32, device=dev),
-        bias_key=rows((), torch.int64, 0, None),
+        bias_key=rows((), torch.int64, 0, _bias_keys(cfg, root_states) if use_bias else None),
         last_bias_delta=rows((), torch.float32, 0.0, None),
         last_bias_weight=rows((), torch.float32, 0.0, None),
-        bias_table=torch.zeros((B, 1, 2), dtype=torch.float32, device=dev),
-        root_hint=torch.full((B,), -1, dtype=torch.int64, device=dev),
+        bias_table=torch.zeros((B, BIAS_SLOTS if use_bias else 1, 2), dtype=torch.float32, device=dev),
+        root_hint=root_hint,
     )
 
 
@@ -497,11 +639,23 @@ def _interior_level(cfg, sp: SearchParams, tree: Tree, bidx, node):
     return cand, LevelScratch(cs_raw, prior_c, child_c, ev_c), selection
 
 
-def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth: int):
+def _want_catch(sp: SearchParams, ev, cvis, has_child) -> torch.Tensor:
+    """The edge-visit catch-up test of graph search (search.cpp:1169-1206):
+    the chosen edge has fewer visits than its child, so the playout claims
+    an edge visit there instead of descending. `ev` and `cvis` are the
+    edge's visits and the child's S_VISITS, both float32."""
+    if not sp.useGraphSearch:
+        return torch.zeros_like(has_child)
+    return has_child & (ev < cvis - 0.5)
+
+
+def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth: int, act_mask=None):
     """The root level of descent, at full width from the carried root child
     stats. Returns (path, acts) [B, max_depth + 1] for the playout, the
-    root's action act0 [B], and (node, depth, active) [B] after the level;
-    the traversed root edge is counted in `tree.edge_visits`."""
+    root's action act0 [B], (node, depth, walk) [B] after the level (`walk`:
+    the games whose interior descent goes on) and the root's catch-up
+    [B]. The traversed root edge of each game in `act_mask` (default all)
+    is counted in `tree.edge_visits`."""
     B = root_cs.shape[0]
     dev = root_cs.device
     bidx = torch.arange(B, device=dev)
@@ -513,14 +667,19 @@ def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth
     root_term = tree.is_terminal[:, 0]
     cs0 = _edge_stats_from_raw(tree, bidx, zero, root_cs)
     act0 = _select_action(sp, tree, zero, torch.ones_like(root_term), cs=cs0)
-    child0 = tree.children[bidx, 0, act0]
-    move_on0 = ~root_term & (child0 >= 0)
-    tree.edge_visits[bidx, 0, act0] += move_on0.to(torch.int32)
-    node = torch.where(move_on0, child0.clamp(min=0).to(torch.int64), zero)
+    child0 = tree.children[bidx, 0, act0].to(torch.int64)
+    has_child0 = child0 >= 0
+    catch0 = _want_catch(
+        sp, tree.edge_visits[bidx, 0, act0].to(torch.float32), tree.stats[bidx, child0.clamp(min=0), S_VISITS],
+        has_child0,
+    ) & ~root_term
+    move_on0 = ~root_term & has_child0 & ~catch0
+    walk = move_on0 if act_mask is None else move_on0 & act_mask
+    tree.edge_visits[bidx, 0, act0] += walk.to(torch.int32)
+    node = torch.where(move_on0, child0.clamp(min=0), zero)
     depth = move_on0.to(torch.int64)
     path[:, 1] = torch.where(move_on0, node, path[:, 1])
-    active = move_on0 & (1 < max_depth)
-    return path, acts, act0, node, depth, active
+    return path, acts, act0, node, depth, walk & (1 < max_depth), catch0
 
 
 def _descend_interior_plain(cfg, sp: SearchParams, tree: Tree, node, depth, active, path, acts,
@@ -529,13 +688,14 @@ def _descend_interior_plain(cfg, sp: SearchParams, tree: Tree, node, depth, acti
     step with one host sync per level, from (node, depth, active) after the
     root level down to the leaf. Per level and active game: the lanes go to
     `scratch` slot depth-1, the chosen lane to `acts[depth]` (also where the
-    child is missing), and on moving on the edge visit to
+    child is missing or caught up), and on moving on the edge visit to
     `tree.edge_visits` and the child to `path`; all in place. Stops at a
-    terminal node, a missing child or depth == max_depth (the scratch's D).
-    Returns (leaf, leaf_depth) [B]."""
+    terminal node, a missing child, a graph-search catch-up or depth ==
+    max_depth (the scratch's D). Returns (leaf, leaf_depth, caught) [B]."""
     B = node.shape[0]
     bidx = torch.arange(B, device=node.device)
     max_depth = scratch.child_c.shape[1]
+    caught = torch.zeros_like(active)
     while bool(active.any()):
         term = tree.is_terminal[bidx, node]
         cand, lanes, selection = _interior_level(cfg, sp, tree, bidx, node)
@@ -547,15 +707,17 @@ def _descend_interior_plain(cfg, sp: SearchParams, tree: Tree, node, depth, acti
         act_c = torch.argmax(selection, dim=-1)
         child = lanes.child_c[bidx, act_c]
         flat_act = cand[bidx, act_c]  # -1 only where the lane is not active
-        move_on = active & ~term & (child >= 0)
         rec = active & ~term
+        catch = rec & _want_catch(sp, lanes.ev_c[bidx, act_c], lanes.cs_raw[bidx, act_c, S_VISITS], child >= 0)
+        move_on = rec & (child >= 0) & ~catch
         acts[bidx, torch.where(rec, depth, max_depth)] = torch.where(rec, act_c, acts[:, max_depth])
         tree.edge_visits[bidx, node, flat_act.clamp(min=0)] += move_on.to(torch.int32)
         node = torch.where(move_on, child.clamp(min=0).to(torch.int64), node)
         depth = torch.where(move_on, depth + 1, depth)
         path[bidx, torch.where(move_on, depth, 0)] = torch.where(move_on, node, path[:, 0])
+        caught |= catch
         active = move_on & (depth < max_depth)
-    return node, depth
+    return node, depth, caught
 
 
 def _descend_interior(cfg, sp: SearchParams, tree: Tree, node, depth, active, path, acts,
@@ -569,49 +731,80 @@ def _descend_interior(cfg, sp: SearchParams, tree: Tree, node, depth, active, pa
     return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
 
 
+def _hash_lookup(tree: Tree, new_hash, expanding):
+    """Graph search's transposition lookup: (found, index) [B] of the first
+    allocated node whose situation hash equals `new_hash` [B, 2]."""
+    N = tree.stats.shape[1]
+    slot_valid = torch.arange(N, device=new_hash.device)[None, :] < tree.node_count[:, None]
+    hmatch = slot_valid & (tree.sit_hash == new_hash[:, None, :]).all(-1)
+    return hmatch.any(1) & expanding, hmatch.to(torch.uint8).argmax(1)
+
+
 def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth: int,
-                   root_cs: torch.Tensor, scratch: LevelScratch) -> torch.Tensor:
-    """One playout per game, updating `tree` in place. `root_cs` [B, A, 8]
-    is the root's child-stats gather carried across the simulations of one
-    search: only the root child this playout went through changes, so it is
-    patched here (in place) and returned. `scratch` holds the interior
-    levels' lanes from the descent to the backup."""
+                   root_cs: torch.Tensor, scratch: LevelScratch, active: torch.Tensor | None = None) -> torch.Tensor:
+    """One playout per game, updating `tree` in place; a game outside
+    `active` [B] (default all) changes nothing. `root_cs` [B, A, 8] is the
+    root's child-stats gather carried across the simulations of one search:
+    only the root child this playout went through changes, so it is patched
+    here (in place) and returned. `scratch` holds the interior levels' lanes
+    from the descent to the backup."""
     B, N, A = tree.prior.shape
     dev = tree.stats.device
     bidx = torch.arange(B, device=dev)
     C = 4 * max(cfg.x_size, cfg.y_size)
     zero = torch.zeros((B,), dtype=torch.int64, device=dev)
+    act_mask = torch.ones((B,), dtype=torch.bool, device=dev) if active is None else active
+    use_bias = sp.subtreeValueBiasFactor != 0.0
 
     # ---------------- Descent ----------------
-    path, acts, act0, node, depth, active = _descend_root(sp, tree, root_cs, max_depth)
-    leaf, leaf_depth = _descend_interior(cfg, sp, tree, node, depth, active, path, acts, scratch)
+    path, acts, act0, node, depth, walk, caught0 = _descend_root(sp, tree, root_cs, max_depth, active)
+    leaf, leaf_depth, caught = _descend_interior(cfg, sp, tree, node, depth, walk, path, acts, scratch)
+    caught = (caught | caught0) & act_mask
     # the stopping edge's flat action: the root's, or the recorded lane
     # mapped through the leaf's candidate table
     leaf_cand, _ = _cand_lanes(cfg, tree.states, bidx, leaf)
     flat_stop = leaf_cand[bidx, acts[bidx, leaf_depth].clamp(0, C - 1)]
     action = torch.where(leaf_depth == 0, act0, flat_stop).clamp(0, A - 1)
-    depth_capped = leaf_depth >= max_depth
+    # a depth-capped playout counted its last edge in the descent; it
+    # expands nothing and backs up from its last node
+    depth_capped = (leaf_depth >= max_depth) & act_mask
     action = torch.where(depth_capped, 0, action)
     leaf_is_terminal = tree.is_terminal[bidx, leaf]
-    leaf_terminal = leaf_is_terminal & ~depth_capped
-    expanding = ~leaf_is_terminal & ~depth_capped
+    leaf_terminal = leaf_is_terminal & act_mask & ~depth_capped
+    expanding = ~leaf_is_terminal & ~caught & ~depth_capped & act_mask
 
     # ---------------- Expansion ----------------
+    # step, evaluate, then link to a transposed node (graph search) or
+    # allocate a slot
     new_states = step(cfg, tree.states.map(lambda x: x[bidx, leaf]), action)
     res = eval_fn(new_states)
+    if sp.useGraphSearch:
+        new_hash = situation_hash(cfg, new_states)
+        found, found_idx = _hash_lookup(tree, new_hash, expanding)
+    else:
+        found = torch.zeros_like(expanding)
+        found_idx = zero
 
     new_idx = tree.node_count.clone()  # node_count is advanced in place below
-    do_alloc = expanding & (new_idx < N)
-    overflow = expanding & (new_idx >= N)
+    capacity_ok = new_idx < N
+    do_alloc = expanding & ~found & capacity_ok
+    do_link = expanding & found
+    overflow = expanding & ~found & ~capacity_ok
 
     new_terminal = new_states.done
     term_util = _terminal_utility(new_states)
     legal = legal_mask_flat(cfg, new_states)
     new_prior = torch.where(legal, res.policy, -1.0)
-    u_new = torch.where(new_terminal, term_util, res.utility)
+    u_raw = torch.where(new_terminal, term_util, res.utility)
     wl_new = torch.where(new_terminal, term_util, res.wl)
     d_new = torch.where(new_terminal, (new_states.winner == 0).to(torch.float32), res.draw)
     w_new = torch.where(new_terminal, 1.0, _eval_weight(sp, res.shortterm_error))
+    if use_bias:
+        new_keys = _bias_keys(cfg, new_states)
+        # addLeafValue: bias the initial utility toward the table entry
+        u_init = u_raw + torch.where(new_terminal, 0.0, _bias_avg(sp, tree, bidx, new_keys))
+    else:
+        u_init = u_raw
 
     slot = torch.where(do_alloc, new_idx, 0)  # slot-0 writes keep the old row
 
@@ -622,17 +815,25 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     for full, new in zip(tree.states, new_states):
         upd(full, new)
     one = torch.ones((B,), dtype=torch.float32, device=dev)
-    upd(tree.stats, _stats_row(one, w_new, w_new * w_new, u_new, u_new * u_new, wl_new, d_new))
-    upd(tree.self_stats, torch.stack([u_new, wl_new, d_new, w_new], dim=-1))
+    upd(tree.stats, _stats_row(one, w_new, w_new * w_new, u_init, u_init * u_init, wl_new, d_new))
+    upd(tree.self_stats, torch.stack([u_raw, wl_new, d_new, w_new], dim=-1))
     upd(tree.prior, new_prior)
     upd(tree.parent, leaf)
     upd(tree.parent_action, action)
     upd(tree.is_terminal, new_terminal)
+    if sp.useGraphSearch:
+        upd(tree.sit_hash, new_hash)
+    if use_bias:
+        upd(tree.bias_key, new_keys)
+    new_child = torch.where(do_link, found_idx, new_idx)
+    linked = do_alloc | do_link
     tree.children[bidx, leaf, action] = torch.where(
-        do_alloc, new_idx.to(torch.int32), tree.children[bidx, leaf, action]
+        linked, new_child.to(torch.int32), tree.children[bidx, leaf, action]
     )
     tree.node_count.add_(do_alloc.to(torch.int64))
-    edge_inc = do_alloc.to(torch.int32)
+    # the stopping edge's visit: a new or linked edge is traversed once, a
+    # catch-up claims one visit (search.cpp:1199)
+    edge_inc = (linked | caught).to(torch.int32)
     tree.edge_visits[bidx, leaf, action] += edge_inc
 
     # terminal leaf (or full tree): re-add its stored value incrementally
@@ -657,15 +858,15 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
 
     # ---------------- Backup ----------------
     # Recompute the path bottom-up. A terminal/overflow revisit starts at the
-    # leaf's parent; an expansion starts at the stopping node. Interior
-    # levels reuse the descent's saved lanes (the scratch), patched with what
-    # this playout changed: the new child link, the edge visits, the path
-    # child's stats.
+    # leaf's parent; an expansion, link or catch-up starts at the stopping
+    # node. Interior levels reuse the descent's saved lanes (the scratch),
+    # patched with what this playout changed: the new child link, the edge
+    # visits, the path child's stats.
     limit = torch.where(revisit | depth_capped, leaf_depth - 1, leaf_depth)
-    new_child = torch.where(do_alloc, new_idx, -1).to(torch.int32)
-    for lvl in range(int(limit.max()), 0, -1):
+    new_child = torch.where(linked, new_child, -1).to(torch.int32)
+    for lvl in range(int(torch.where(act_mask, limit, 0).max()), 0, -1):
         n = path[:, lvl]
-        on_path = (lvl <= limit) & (n >= 0) & (lvl <= leaf_depth)
+        on_path = (lvl <= limit) & (n >= 0) & (lvl <= leaf_depth) & act_mask
         cs_raw, _, child_c, ev_c = (x[:, lvl - 1] for x in scratch)  # views: patches land
         pa = acts[:, lvl]
         at_stop = leaf_depth == lvl
@@ -682,7 +883,7 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     rchild = tree.children[bidx, 0, act0]
     rrow = tree.stats[bidx, rchild.clamp(min=0).to(torch.int64)]
     root_cs[bidx, act0] = torch.where((rchild >= 0)[:, None], rrow, root_cs[bidx, act0])
-    _recompute_node(sp, tree, zero, limit >= 0, cs_raw=root_cs)
+    _recompute_node(sp, tree, zero, (limit >= 0) & act_mask, cs_raw=root_cs)
     return root_cs
 
 
@@ -692,10 +893,12 @@ def _norm_cdf(z):
 
 def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes=None) -> None:
     """recomputeNodeStats for nodes [B] where `mask` (searchupdatehelpers.cpp:
-    152-337): aggregate the child edges with value-based downweighting and
-    add the node's own eval; one row write per node. `cs_raw` [B, A', 8]
-    supplies the children's raw stat rows; `lanes` = (child_row, evis_row)
-    supplies compact [B, C] lane views for interior nodes."""
+    152-337): aggregate the child edges with the root-noise weight
+    subtraction and value-based downweighting, update the subtree value
+    bias entry, and add the node's (biased) own eval; one row write per
+    node. `cs_raw` [B, A', 8] supplies the children's raw stat rows; `lanes`
+    = (child_row, evis_row) supplies compact [B, C] lane views for interior
+    nodes, which are never the root."""
     B = node.shape[0]
     bidx = torch.arange(B, device=node.device)
     if cs_raw is None:
@@ -703,23 +906,33 @@ def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes
     child_row, evis_row = (None, None) if lanes is None else lanes
     cs = _edge_stats_from_raw(tree, bidx, node, cs_raw, child_row=child_row, evis_row=evis_row)
     cw, cu, cwl, cdraw, cusq, cwsq = cs["w"], cs["u"], cs["wl"], cs["draw"], cs["usq"], cs["wsq"]
-    total_w = cw.sum(-1)
+
+    cw_used = cw
+    if lanes is None and sp.rootNoiseEnabled and (sp.chosenMoveSubtract > 0 or sp.chosenMovePrune > 0):
+        # root noise subtraction without noise pruning (searchupdatehelpers.cpp:199-209)
+        max_w = cw.amax(-1)
+        subtract = (max_w / 64.0).clamp(max=sp.chosenMoveSubtract)
+        prune = (max_w / 64.0).clamp(max=sp.chosenMovePrune)
+        w_adj0 = (cw - subtract[:, None]).clamp(min=0.0)
+        w_adj0 = torch.where(cw < prune[:, None], 0.0, w_adj0)
+        cw_used = torch.where((node == 0)[:, None], w_adj0, cw)
+    total_w = cw_used.sum(-1)
 
     if sp.valueWeightExponent > 0:
         # downweightBadChildrenAndNormalizeWeight (searchupdatehelpers.cpp:368+)
         simple_value = torch.where(
-            total_w > 0, (cu * cw).sum(-1) / total_w.clamp(min=_EPS), 0.0
+            total_w > 0, (cu * cw_used).sum(-1) / total_w.clamp(min=_EPS), 0.0
         )
-        precision = 1.5 * torch.sqrt(cw.clamp(min=_EPS))
+        precision = 1.5 * torch.sqrt(cw_used.clamp(min=_EPS))
         stdev = torch.sqrt(1e-8 + 1.0 / precision)
         z = (cu - simple_value[:, None]) / stdev
         p = _norm_cdf(z) + 1e-4
-        w_adj = cw * torch.pow(p, sp.valueWeightExponent)
+        w_adj = cw_used * torch.pow(p, sp.valueWeightExponent)
         w_adj_sum = w_adj.sum(-1)
         factor = torch.where(w_adj_sum > 0, total_w / w_adj_sum.clamp(min=_EPS), 0.0)
         w_adj = w_adj * factor[:, None]
     else:
-        w_adj = cw
+        w_adj = cw_used
 
     scaling = torch.where(cw > 0, w_adj / cw.clamp(min=_EPS), 0.0)
     selfs = tree.self_stats[bidx, node]
@@ -727,6 +940,24 @@ def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes
     self_u = selfs[:, F_U]
     child_w_total = w_adj.sum(-1)
     util_children_sum = (w_adj * cu).sum(-1)
+
+    if sp.subtreeValueBiasFactor != 0.0:
+        # subtree value bias (searchupdatehelpers.cpp:254-285): the table
+        # entry holds this node's last contribution differentially
+        orig_total = cw.sum(-1)
+        key = tree.bias_key[bidx, node]
+        util_children = util_children_sum / child_w_total.clamp(min=_EPS)
+        w_b = torch.pow(orig_total.clamp(min=0.0), sp.subtreeValueBiasWeightExponent)
+        delta = (util_children - self_u) * w_b
+        do_upd = mask & (orig_total > 1e-10)
+        last_d = tree.last_bias_delta[bidx, node]
+        last_w = tree.last_bias_weight[bidx, node]
+        tree.bias_table[bidx, key] += torch.stack(
+            [torch.where(do_upd, delta - last_d, 0.0), torch.where(do_upd, w_b - last_w, 0.0)], dim=-1
+        )
+        tree.last_bias_delta[bidx, node] = torch.where(do_upd, delta, last_d)
+        tree.last_bias_weight[bidx, node] = torch.where(do_upd, w_b, last_w)
+        self_u = self_u + torch.where(tree.is_terminal[bidx, node], 0.0, _bias_avg(sp, tree, bidx, key))
 
     weight_sum = child_w_total + self_w
     inv = 1.0 / weight_sum.clamp(min=_EPS)
@@ -748,6 +979,44 @@ def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes
 # ---------------------------------------------------------------------------
 
 
+def _max_depth(cfg: GameConfig, sp: SearchParams) -> int:
+    """The descent depth bound: area + 1, cut by maxPlayoutDepthProp under
+    graph search (a truncated playout claims its last edge visit, the
+    catch-up bookkeeping)."""
+    max_depth = cfg.area + 1
+    if sp.useGraphSearch and sp.maxPlayoutDepthProp < 1.0:
+        max_depth = max(2, min(max_depth, int(round(max_depth * sp.maxPlayoutDepthProp))))
+    return max_depth
+
+
+def _root_child_stats_raw(tree: Tree) -> torch.Tensor:
+    B = tree.stats.shape[0]
+    dev = tree.stats.device
+    return _gather_child_stats(
+        tree, torch.arange(B, device=dev), torch.zeros((B,), dtype=torch.int64, device=dev)
+    )
+
+
+def _run_to_target(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, target, max_sims: int) -> int:
+    """Playouts until every root has `target` visits (a float or [B]), at
+    most `max_sims`; a game at its target changes nothing. Returns the
+    simulations run. Each playout adds at most one visit to a root, so the
+    largest deficit is run before the host reads the visits again."""
+    max_depth = _max_depth(cfg, sp)
+    root_cs = _root_child_stats_raw(tree)
+    scratch = make_level_scratch(cfg, tree.stats.shape[0], max_depth, tree.stats.device)
+    rounds = 0
+    while rounds < max_sims:
+        need = math.ceil(float((target - tree.stats[:, 0, S_VISITS]).max()))
+        if need <= 0:
+            break
+        for _ in range(min(need, max_sims - rounds)):
+            active = tree.stats[:, 0, S_VISITS] < target
+            root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch, active)
+            rounds += 1
+    return rounds
+
+
 @torch.no_grad()
 def run_search(
     cfg: GameConfig,
@@ -758,36 +1027,193 @@ def run_search(
     max_nodes: int | None = None,
     *,
     device: str | torch.device | None = None,
+    generator: torch.Generator | None = None,
+    draws: RootDraws | None = None,
     reuse_tree: Tree | None = None,
+    reuse_actions: torch.Tensor | None = None,
+    reuse_ok: torch.Tensor | None = None,
     root_hint: torch.Tensor | None = None,
     root_avoid: torch.Tensor | None = None,
     avoid_until: torch.Tensor | None = None,
-) -> Tree:
-    """runWholeSearch on a fresh tree: exactly `num_sims` playouts for each
-    of the B games (the root ends at num_sims + 1 visits), on `device`
-    (default `cuda`; the root states are moved there). The evaluator must
-    run on the same device. Tree reuse, root hints and avoid masks are not
-    ported yet and raise."""
-    for name, arg in (("reuse_tree", reuse_tree), ("root_hint", root_hint),
-                      ("root_avoid", root_avoid), ("avoid_until", avoid_until)):
+    with_diag: bool = False,
+):
+    """runWholeSearch (search.cpp:361-509) on `device` (default `cuda`; the
+    root states are moved there). The evaluator must run on the same device.
+
+    Without `reuse_tree`: exactly `num_sims` playouts per game (the root
+    ends at num_sims + 1 visits). With `reuse_tree` (the previous move's
+    tree), `reuse_actions` [B] (the move each game played) and `reuse_ok`
+    [B] (False where reuse is invalid, such as a reset game): the tree is
+    re-rooted at the played child (`advance_root`) and playouts run until
+    every root has num_sims + 1 visits, at most `num_sims` of them.
+
+    `root_hint` [B] is each game's rootHintLoc action (-1 none). The root's
+    random draws come from `draws` where given, else from `generator`, a
+    torch.Generator on `device`; a search that needs one and has neither
+    raises. With `with_diag` it also returns {"rounds": simulations run,
+    "start_visits": [B] root visits before them}. Avoid masks are not ported
+    and raise."""
+    for name, arg in (("root_avoid", root_avoid), ("avoid_until", avoid_until)):
         if arg is not None:
             raise NotImplementedError(f"katacoffee_tpu_torch search: {name} is not ported yet")
     _check_supported(sp)
     dev = resolve_device(device)
     root_states = root_states.map(lambda x: x.to(dev))
-    if max_nodes is None:
-        max_nodes = num_sims + 2
-    max_depth = cfg.area + 1
-
-    tree = init_tree(cfg, sp, eval_fn, root_states, max_nodes)
-    B = tree.stats.shape[0]
-    root_cs = _gather_child_stats(
-        tree, torch.arange(B, device=dev), torch.zeros((B,), dtype=torch.int64, device=dev)
-    )
-    scratch = make_level_scratch(cfg, B, max_depth, dev)
-    for _ in range(num_sims):
-        root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch)
+    if root_hint is not None:
+        root_hint = root_hint.to(device=dev, dtype=torch.int64)
+    if reuse_tree is None:
+        if max_nodes is None:
+            max_nodes = num_sims + 2
+        tree = init_tree(cfg, sp, eval_fn, root_states, max_nodes, generator=generator, draws=draws,
+                         root_hint=root_hint)
+        B = tree.stats.shape[0]
+        max_depth = _max_depth(cfg, sp)
+        root_cs = _root_child_stats_raw(tree)
+        scratch = make_level_scratch(cfg, B, max_depth, dev)
+        for _ in range(num_sims):
+            root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch)
+        rounds = num_sims
+        start_visits = torch.ones((B,), dtype=torch.float32, device=dev)
+    else:
+        if reuse_actions is None:
+            raise ValueError("katacoffee_tpu_torch search: reuse_tree needs reuse_actions")
+        tree = advance_root(cfg, sp, eval_fn, reuse_tree, reuse_actions.to(dev), root_states,
+                            generator=generator, draws=draws,
+                            reuse_ok=None if reuse_ok is None else reuse_ok.to(dev), root_hint=root_hint)
+        start_visits = tree.stats[:, 0, S_VISITS].clone()
+        rounds = _run_to_target(cfg, sp, eval_fn, tree, float(num_sims + 1), num_sims)
+    if with_diag:
+        return tree, {"rounds": rounds, "start_visits": start_visits}
     return tree
+
+
+@torch.no_grad()
+def continue_search(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_more_sims: int,
+                    target_visits) -> Tree:
+    """Continue a search at the same root until each game's root has
+    `target_visits` visits (a float or [B]), at most `max_more_sims` more
+    playouts: the interruptible half of the search loop. The tree must have
+    the node capacity for the final target. Updates `tree` in place and
+    returns it."""
+    _check_supported(sp)
+    target = torch.as_tensor(target_visits, dtype=torch.float32, device=tree.stats.device)
+    _run_to_target(cfg, sp, eval_fn, tree, target, max_more_sims)
+    return tree
+
+
+@torch.no_grad()
+def advance_root(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree, actions: torch.Tensor,
+                 root_states: GameState, *, generator: torch.Generator | None = None,
+                 draws: RootDraws | None = None, reuse_ok: torch.Tensor | None = None,
+                 turn_number: torch.Tensor | None = None, root_hint: torch.Tensor | None = None) -> Tree:
+    """Re-root each game's tree at the child reached by `actions` [B], the
+    reference's beginSearch tree reuse (search.cpp:262-331), as a compaction:
+    the nodes reachable from the new root along first-parent chains, within
+    the JAX package's fixed number of chain steps, move to the front with
+    the new root at slot 0; the rest are freed and give back freeProp of
+    their subtree-value-bias contribution (search.cpp:773-786). Games whose
+    played child does not exist, or where `reuse_ok` [B] is False, get a
+    fresh root from a batched evaluation of `root_states`. Both root priors
+    are re-tempered and re-noised, as beginSearch does (`draws.gamma` for
+    the fresh one, `draws.gamma_reused` for the reused one). Index gathers
+    replace the JAX package's one-hot matmuls; the payloads are integers or
+    exact copies, so the result is the same. Returns a new Tree."""
+    _check_supported(sp)
+    B, N = tree.stats.shape[:2]
+    dev = tree.stats.device
+    bidx = torch.arange(B, device=dev)
+    nidx = torch.arange(N, device=dev)
+    draws = RootDraws() if draws is None else draws
+    res = _root_eval(cfg, sp, eval_fn, root_states, generator, draws.syms)
+    fresh = _tree_from_root_eval(cfg, sp, root_states, res, N, generator=generator, gamma=draws.gamma,
+                                 turn_number=turn_number, root_hint=root_hint)
+
+    new_root = tree.children[bidx, 0, actions.to(torch.int64)].to(torch.int64)
+    has = new_root >= 0
+    if reuse_ok is not None:
+        has = has & reuse_ok
+    new_root_safe = new_root.clamp(min=0)
+
+    # reachability from the new root: step i looks (i + 1) parents up from
+    # every node, as the JAX package's loop does (it covers chains of up to
+    # 15 steps at 5x5)
+    valid_slot = nidx[None, :] < tree.node_count[:, None]
+    reach = nidx[None, :] == new_root_safe[:, None]
+    ptr = tree.parent
+    for _ in range(max(1, int(cfg.area + 1).bit_length())):
+        ptr_safe = ptr.clamp(min=0)
+        reach = reach | ((ptr >= 0) & reach.gather(1, ptr_safe))
+        ptr = torch.where(ptr >= 0, tree.parent.gather(1, ptr_safe), -1)
+    kept = reach & valid_slot
+
+    # stable permutation: the new root first, then the other kept nodes
+    key = torch.where(nidx[None, :] == new_root_safe[:, None], 0, torch.where(kept, 1, 2))
+    order = torch.argsort(key, dim=1, stable=True)  # [B, N] old index of each new slot
+    inv = torch.empty_like(order).scatter_(1, order, nidx[None, :].expand(B, N).contiguous())
+    live = nidx[None, :] < kept.sum(1)[:, None]
+
+    def g(x):
+        return x[bidx[:, None], order]
+
+    ch_g = g(tree.children).to(torch.int64)
+    ch_vals = ch_g.clamp(min=0)
+    child_kept = (ch_g >= 0) & kept[bidx[:, None, None], ch_vals]
+    ch_new = torch.where(child_kept & live[:, :, None], inv[bidx[:, None, None], ch_vals], -1)
+    par_g = g(tree.parent)
+    par_vals = par_g.clamp(min=0)
+    par_new = torch.where((par_g >= 0) & kept[bidx[:, None], par_vals] & live, inv[bidx[:, None], par_vals], -1)
+    par_new[:, 0] = -1  # the new root has no parent
+
+    table = tree.bias_table
+    last_bd, last_bw = tree.last_bias_delta, tree.last_bias_weight
+    if sp.subtreeValueBiasFactor != 0.0:
+        # freed nodes give back freeProp of their last table contribution
+        dropped = valid_slot & ~kept
+        fp = sp.subtreeValueBiasFreeProp
+        table = table.index_put(
+            (bidx[:, None].expand(B, N), tree.bias_key),
+            torch.stack([torch.where(dropped, -fp * last_bd, 0.0), torch.where(dropped, -fp * last_bw, 0.0)],
+                        dim=-1),
+            accumulate=True,
+        )
+        last_bd = torch.where(live, g(last_bd), 0.0)
+        last_bw = torch.where(live, g(last_bw), 0.0)
+
+    # the reused root's prior comes afresh from `res`, the new root's
+    # evaluation; its self_stats keep the original leaf eval
+    reused_prior = g(tree.prior)
+    reused_prior[:, 0] = fresh.prior[:, 0]
+    reused_raw = fresh.prior[:, 0]
+    reused_root_prior = _make_root_prior(cfg, sp, reused_raw.clamp(min=0.0), reused_raw >= 0, root_states,
+                                         generator, draws.gamma_reused, turn_number, root_hint)
+    reused = Tree(
+        states=tree.states.map(g),
+        stats=torch.where(live[:, :, None], g(tree.stats), 0.0),
+        self_stats=torch.where(live[:, :, None], g(tree.self_stats), 0.0),
+        prior=reused_prior,
+        root_prior=reused_root_prior,
+        children=ch_new.to(torch.int32),
+        edge_visits=torch.where(ch_new >= 0, g(tree.edge_visits), 0),
+        parent=par_new,
+        parent_action=g(tree.parent_action),
+        is_terminal=live & g(tree.is_terminal),
+        node_count=kept.sum(1),
+        sit_hash=g(tree.sit_hash),
+        policy_rank=tree.policy_rank,
+        bias_key=g(tree.bias_key) if sp.subtreeValueBiasFactor != 0.0 else tree.bias_key,
+        last_bias_delta=last_bd,
+        last_bias_weight=last_bw,
+        bias_table=table,
+        root_hint=fresh.root_hint,
+    )
+
+    def merge(r, f):
+        return torch.where(has.reshape((B,) + (1,) * (r.dim() - 1)), r, f)
+
+    return Tree(
+        states=GameState(*(merge(r, f) for r, f in zip(reused.states, fresh.states))),
+        **{name: merge(getattr(reused, name), getattr(fresh, name)) for name in Tree._fields if name != "states"},
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -806,6 +1232,11 @@ def _root_child_stats(tree: Tree) -> dict:
 def root_visit_counts(tree: Tree) -> torch.Tensor:
     """[B, A] root edge-visit counts."""
     return tree.edge_visits[:, 0, :]
+
+
+def root_child_weights(tree: Tree) -> torch.Tensor:
+    """[B, A] edge-scaled child weights at the root."""
+    return _root_child_stats(tree)["w"]
 
 
 @torch.no_grad()
@@ -863,3 +1294,78 @@ def root_play_selection_weights(sp: SearchParams, tree: Tree, cs: dict | None = 
     reduced = torch.ceil(torch.minimum(w, wanted.clamp(min=0.0)))
     out = torch.where(onehot_best | ~any_live[:, None], w, reduced)
     return torch.where(live, out, 0.0)
+
+
+def _child_utility_stdev(tree: Tree, cs: dict | None = None):
+    """Per-root-child utility, its stdev for LCB (weight-based precision) and
+    weight, [B, A] each; missing children get utility -1e30 and stdev
+    1e30."""
+    if cs is None:
+        cs = _root_child_stats(tree)
+    u = cs["u"]
+    var = (cs["usq"] - u * u).clamp(min=1e-8)
+    ess = torch.where(cs["wsq"] > 0, cs["w"] * cs["w"] / cs["wsq"].clamp(min=_EPS), 1.0)
+    stdev = torch.sqrt(var / ess.clamp(min=1.0))
+    return torch.where(cs["live"], u, -1e30), torch.where(cs["live"], stdev, 1e30), cs["w"]
+
+
+@torch.no_grad()
+def select_moves(cfg: GameConfig, sp: SearchParams, tree: Tree, generator: torch.Generator | None = None,
+                 gumbel: torch.Tensor | None = None, turn_number: torch.Tensor | None = None) -> torch.Tensor:
+    """getChosenMoveLoc (searchresults.cpp): the move of each game [B] from
+    its play-selection weights, with the LCB boost (useLcbForSelection) and
+    the chosenMove* temperature decaying with the turn number. Sampling is
+    argmax(logits + Gumbel noise), as jax.random.categorical computes it;
+    the noise [B, A] is `gumbel`, else drawn from `generator`. A near-zero
+    temperature takes the greedy move; a game with no weighted child takes
+    the highest root prior."""
+    A = tree.children.shape[-1]
+    legal = tree.root_prior >= 0
+    cs = _root_child_stats(tree)
+    w_sel = root_play_selection_weights(sp, tree, cs)
+    if sp.useLcbForSelection:
+        # the weight blend of getPlaySelectionValues (searchresults.cpp:188-233):
+        # the best-LCB eligible child's weight is raised to
+        # max_i ((radius_i + excess_i) / (radius_i + 0.2 excess_i))^2 w_i
+        u, stdev, _ = _child_utility_stdev(tree, cs)
+        w = w_sel
+        radius = sp.lcbStdevs * stdev
+        lcb = u - radius
+        eligible = (w > 0) & (w >= sp.minVisitPropForLCB * w.amax(-1, keepdim=True))
+        lcb_elig = torch.where(eligible, lcb, -math.inf)
+        best_idx = torch.argmax(lcb_elig, dim=-1)
+        excess = lcb_elig.amax(-1, keepdim=True) - lcb
+        rf = (radius + excess) / (radius + 0.2 * excess).clamp(min=_EPS)
+        onehot_best = torch.nn.functional.one_hot(best_idx, A).to(torch.bool)
+        lbound = torch.where((excess >= 0) & ~onehot_best & (w > 0), rf * rf * w, 0.0)
+        boosted = torch.maximum(w.gather(1, best_idx[:, None]), lbound.amax(-1, keepdim=True))
+        w_sel = torch.where(onehot_best & eligible.any(-1)[:, None], boosted, w)
+
+    if turn_number is None:
+        turn_number = tree.states.num_turns[:, 0]
+    frac = 0.5 ** (turn_number.to(torch.float32) / sp.chosenMoveTemperatureHalflife)
+    temp = sp.chosenMoveTemperature + frac * (sp.chosenMoveTemperatureEarly - sp.chosenMoveTemperature)
+    temp = temp.clamp(min=1e-4)
+
+    v = (w_sel - sp.chosenMoveSubtract).clamp(min=0.0)
+    v = torch.where(w_sel < sp.chosenMovePrune, 0.0, v)
+    v = torch.where(legal, v, 0.0)
+    logits = torch.where(v > 0, torch.log(v.clamp(min=1e-30)) / temp[:, None], -math.inf)
+    if gumbel is None:
+        g = _need_generator(generator, "select_moves")
+        gumbel = -torch.log(torch.empty(v.shape, device=v.device).exponential_(generator=g))
+    sampled = torch.argmax(logits + gumbel.to(v.device), dim=-1)
+    choice = torch.where(temp <= 1e-3, torch.argmax(v, dim=-1), sampled)
+    fallback = torch.argmax(torch.where(legal, tree.root_prior, -math.inf), dim=-1)
+    return torch.where((v > 0).any(-1), choice, fallback)
+
+
+@torch.no_grad()
+def policy_target(tree: Tree, sp: SearchParams) -> torch.Tensor:
+    """Training policy target (extractPolicyTarget, play.cpp:635): the root
+    play-selection weights, normalized, whose over-visited reduction removes
+    the weight that forced playouts and root noise drove into non-best
+    children."""
+    v = root_play_selection_weights(sp, tree)
+    total = v.sum(-1, keepdim=True)
+    return torch.where(total > 0, v / total.clamp(min=_EPS), 0.0)

@@ -2,10 +2,10 @@
 whole with the same names and defaults (the reference's knob names,
 searchparams.cpp:8-92), `for_*` constructors included.
 
-This slice of the port runs the default profile, `SearchParams()`: plain
-PUCT without noise, graph search, subtree value bias, noise pruning or
-uncertainty weighting, one root symmetry. `search/mcts.py` raises
-NotImplementedError for any setting outside it.
+The port's search runs `SearchParams()` and `SearchParams.for_selfplay()`;
+`search/mcts.py` raises NotImplementedError for the settings it does not
+take yet (noise pruning, uncertainty weighting, policy optimism, root
+symmetry pruning, several search threads, a catch-up leak).
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ import torch
 from katacoffee_tpu.game import board as JB
 from katacoffee_tpu.game import jitted
 from katacoffee_tpu_torch.game import board as TB
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CFG = JB.GameConfig(5, 5, 4)
 TCFG = TB.GameConfig(5, 5, 4)

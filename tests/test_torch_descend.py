@@ -7,8 +7,10 @@ numpy float32 (`_emulate`, lanes in order, the kernel's summation order and
 constants, the first maximum on ties, and its stop and record rules) and held
 to the plain version on trees taken mid-search: 5x5 with a tiny net (C = 20
 candidate lanes) and 9x9 with the uniform evaluator (C = 36, more lanes than
-a warp has threads), under three selection profiles and a depth cap. Leaf,
-depth, path, acts, edge visits and the scratch slots must be equal; the
+a warp has threads), under three selection profiles and a depth cap, and
+under the selfplay profile on trees that graph search built, with
+transpositions, where descents stop at edge-visit catch-ups. Leaf, depth,
+caught, path, acts, edge visits and the scratch slots must be equal; the
 scratch's stat rows also equal the JAX package's gather. The PUCT scores
 agree within 1e-6, not exactly: the emulation sums the lanes in the order of
 torch's CUDA reduction, the CPU plain version in its vectorized order, and a
@@ -16,6 +18,7 @@ division by a constant is the CUDA multiply by its reciprocal, each a
 difference in the last bit of a float32 score of order one.
 """
 
+import dataclasses
 import functools
 import importlib.util
 import os
@@ -31,6 +34,7 @@ from katacoffee_tpu_torch.game import board as TB
 from katacoffee_tpu_torch.ops import _build, descend
 from katacoffee_tpu_torch.search import mcts as TM
 from katacoffee_tpu_torch.search.params import SearchParams
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINYNET = os.path.join(ROOT, "tests/goldens/tinynet")
@@ -52,6 +56,7 @@ PROFILES = {
                            fpuParentWeightByVisitedPolicyPow=2.0),
     "parent_weight": dict(SELECT_BRANCHES, fpuParentWeight=0.5, fpuLossProp=0.1,
                           valueWeightExponent=0.0),
+    "selfplay": dataclasses.asdict(SearchParams.for_selfplay()),
 }
 BOARDS = {"5x5": (TB.GameConfig(5, 5, 4), "tinynet"), "9x9": (TB.GameConfig(9, 9, 4), "uniform")}
 
@@ -131,7 +136,8 @@ def _first_max(sel):
 def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_first_max):
     """The kernel's descent over CPU tensors, updated in place through numpy
     views, choosing each level's lane with `pick(scores)`. Returns (leaf,
-    leaf_depth) and {(game, depth): scores} of each non-terminal level."""
+    leaf_depth, caught) and {(game, depth): scores} of each non-terminal
+    level."""
     cand_tab = TM._cand_table_np(cfg.x_size, cfg.y_size, cfg.win_len)
     st = tree.states
     last_spot, last_dir = st.last_spot.numpy(), st.last_dir.numpy()
@@ -142,6 +148,7 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
     B, N, _ = children.shape
     D, C = child_c.shape[1:]
     leaf, leaf_depth = node.clone().numpy(), depth.clone().numpy()
+    caught = np.zeros(B, bool)
     scores = {}
     for b in range(B):
         n, d, on = int(node[b]), int(depth[b]), bool(active[b])
@@ -149,7 +156,7 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
             spot, direction = int(last_spot[b, n]), int(last_dir[b, n])
             spot = cfg.area if spot < 0 or spot > cfg.area else spot
             cand = cand_tab[spot, min(max(direction, 0), 4)]
-            kids, pr, w, live, q_child = [], [], [], [], []
+            kids, pr, w, live, q_child, evs, cvis = [], [], [], [], [], [], []
             for c in range(C):
                 a = int(cand[c])
                 kid, ev, p = (int(children[b, n, a]), F(ev_t[b, n, a]), prior[b, n, a]) if a >= 0 else (-1, F(0), F(-1))
@@ -162,20 +169,23 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
                 live.append(is_live)
                 w.append(raw[1] * (ev / max(raw[0], F(1))) if is_live else F(0))
                 q_child.append(-raw[3])
+                evs.append(ev)
+                cvis.append(raw[0])
             if term_t[b, n]:
                 break
             sel = _scores(sp, stats[b, n], self_stats[b, n, TM.F_U], pr, w, live, q_child)
             scores[(b, d)] = sel
             best = pick(sel)
             acts_n[b, d] = best
-            if kids[best] < 0:
+            caught[b] = sp.useGraphSearch and kids[best] >= 0 and evs[best] < cvis[best] - F(0.5)
+            if kids[best] < 0 or caught[b]:
                 break
             ev_t[b, n, cand[best]] += 1
             path_n[b, d + 1] = kids[best]
             n, d = kids[best], d + 1
             on = d < D
         leaf[b], leaf_depth[b] = n, d
-    return torch.from_numpy(leaf), torch.from_numpy(leaf_depth), scores
+    return torch.from_numpy(leaf), torch.from_numpy(leaf_depth), torch.from_numpy(caught), scores
 
 
 # ---------------------------------------------------------------------------
@@ -206,24 +216,33 @@ def _eval_fn(cfg, evals):
 
 
 @functools.lru_cache(maxsize=None)
-def _mid_search_tree(board):
+def _mid_search_tree(board, graph=False):
+    """A tree 30 playouts in; with `graph`, 80 playouts in under the selfplay
+    profile, whose graph search linked a transposition on 5x5."""
     cfg, evals = BOARDS[board]
     roots = _random_roots(cfg, 8, seed=len(board))
-    return TM.run_search(cfg, SearchParams(), _eval_fn(cfg, evals), roots, 30, device="cpu")
+    sp = SearchParams.for_selfplay() if graph else SearchParams()
+    return TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 80 if graph else 30, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
 
 
 def _descent_inputs(board, sp, max_depth=None):
     """A copy of the mid-search tree after the root level of a playout, with
     a scratch filled with arbitrary valid lanes (as an earlier playout
-    leaves it)."""
+    leaves it). Under graph search every interior edge with two or more
+    visits loses one, as a transposition leaves an edge behind its child, so
+    that descents stop at catch-ups."""
     cfg, _ = BOARDS[board]
-    base = _mid_search_tree(board)
+    base = _mid_search_tree(board, sp.useGraphSearch)
     tree = base._replace(edge_visits=base.edge_visits.clone())
+    if sp.useGraphSearch:
+        inner = tree.edge_visits[:, 1:]
+        inner -= (inner >= 2).to(inner.dtype)
     B, N, _ = tree.children.shape
     max_depth = cfg.area + 1 if max_depth is None else max_depth
     bidx = torch.arange(B)
     root_cs = TM._gather_child_stats(tree, bidx, torch.zeros(B, dtype=torch.int64))
-    path, acts, _, node, depth, active = TM._descend_root(sp, tree, root_cs, max_depth)
+    path, acts, _, node, depth, active, _ = TM._descend_root(sp, tree, root_cs, max_depth)
     rng = np.random.default_rng(7)
     scratch = TM.make_level_scratch(cfg, B, max_depth, "cpu")
     scratch.cs_raw.copy_(torch.from_numpy(rng.standard_normal(scratch.cs_raw.shape).astype(F)))
@@ -249,10 +268,11 @@ def _check_against_plain(board, profile, max_depth=None):
     cfg, tree, state = _descent_inputs(board, sp, max_depth)
     t_p, node, depth, active, path_p, acts_p, sc_p = _copy(tree, state)
     t_e, _, _, _, path_e, acts_e, sc_e = _copy(tree, state)
-    leaf_p, ld_p = TM._descend_interior_plain(cfg, sp, t_p, node, depth, active, path_p, acts_p, sc_p)
-    leaf_e, ld_e, scores = _emulate(cfg, sp, t_e, node, depth, active, path_e, acts_e, sc_e)
+    leaf_p, ld_p, caught_p = TM._descend_interior_plain(cfg, sp, t_p, node, depth, active, path_p, acts_p,
+                                                        sc_p)
+    leaf_e, ld_e, caught_e, scores = _emulate(cfg, sp, t_e, node, depth, active, path_e, acts_e, sc_e)
 
-    assert torch.equal(leaf_e, leaf_p) and torch.equal(ld_e, ld_p)
+    assert torch.equal(leaf_e, leaf_p) and torch.equal(ld_e, ld_p) and torch.equal(caught_e, caught_p)
     assert torch.equal(path_e, path_p) and torch.equal(acts_e, acts_p)
     assert torch.equal(t_e.edge_visits, t_p.edge_visits)
     for name, a, b in zip(TM.LevelScratch._fields, sc_e, sc_p):
@@ -279,18 +299,26 @@ def _check_against_plain(board, profile, max_depth=None):
         _, _, sel = TM._interior_level(cfg, sp, tree, bidx, path_p[:, d].clamp(min=0))
         for b in [b for b, dd in scores if dd == d]:
             np.testing.assert_allclose(np.asarray(scores[(b, d)]), sel[b].numpy(), rtol=0, atol=1e-6)
-    return ld_p, leaf_p, t_p
+    return ld_p, leaf_p, caught_p, t_p
 
 
 @pytest.mark.parametrize("profile", list(PROFILES))
 @pytest.mark.parametrize("board", list(BOARDS))
 def test_emulated_kernel_matches_plain_descent(board, profile):
-    ld, _, _ = _check_against_plain(board, profile)
+    ld, _, caught, tree = _check_against_plain(board, profile)
     assert (ld >= 2).any(), "no game descended past the first interior level"
+    if profile == "selfplay":
+        assert caught.any(), "no descent stopped at a catch-up"
+        kids = tree.children.to(torch.int64)
+        b = torch.arange(kids.shape[0])[:, None, None].expand_as(kids)
+        parents = torch.zeros(tree.stats.shape[:2], dtype=torch.int64).index_put_(
+            (b[kids >= 0], kids[kids >= 0]), torch.ones_like(kids[kids >= 0]), accumulate=True
+        )
+        assert board != "5x5" or (parents > 1).any(), "graph search linked no transposition"
 
 
 def test_emulated_kernel_matches_plain_descent_at_the_depth_cap():
-    ld, _, _ = _check_against_plain("5x5", "default", max_depth=3)
+    ld, _, _, _ = _check_against_plain("5x5", "default", max_depth=3)
     assert (ld == 3).any()
 
 
@@ -305,7 +333,7 @@ def test_search_with_the_emulated_kernel_equals_the_plain_search():
     plain = TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 40, device="cpu")
     orig = TM._descend_interior
     try:
-        TM._descend_interior = lambda *a: _emulate(*a)[:2]
+        TM._descend_interior = lambda *a: _emulate(*a)[:3]
         emulated = TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 40, device="cpu")
     finally:
         TM._descend_interior = orig
@@ -338,10 +366,12 @@ def test_chip_check_holds_the_descent_to_torch_argmax(pick):
     start_ev = tree.edge_visits.clone()
     t_p, node, depth, active, path_p, acts_p, sc_p = _copy(tree, state)
     t_e, _, _, _, path_e, acts_e, sc_e = _copy(tree, state)
-    leaf_p, ld_p = TM._descend_interior_plain(cfg, sp, t_p, node, depth, active, path_p, acts_p, sc_p)
-    leaf_e, ld_e, _ = _emulate(cfg, sp, t_e, node, depth, active, path_e, acts_e, sc_e, pick=PICKS[pick])
-    want = (leaf_p, ld_p, path_p, acts_p, t_p.edge_visits, *sc_p)
-    got = (leaf_e, ld_e, path_e, acts_e, t_e.edge_visits, *sc_e)
+    leaf_p, ld_p, caught_p = TM._descend_interior_plain(cfg, sp, t_p, node, depth, active, path_p, acts_p,
+                                                        sc_p)
+    leaf_e, ld_e, caught_e, _ = _emulate(cfg, sp, t_e, node, depth, active, path_e, acts_e, sc_e,
+                                         pick=PICKS[pick])
+    want = (leaf_p, ld_p, path_p, acts_p, t_p.edge_visits, *sc_p, caught_p)
+    got = (leaf_e, ld_e, path_e, acts_e, t_e.edge_visits, *sc_e, caught_e)
     check = functools.partial(chip_smoke.compare_descent, f"9x9 {pick}", cfg, sp, tree, start_ev, state,
                               got, want)
     if pick == "first_max":
@@ -359,7 +389,22 @@ def test_constants_are_rounded_as_torch_rounds_python_scalars():
     assert floats.dtype == np.float32 and ints.dtype == np.int32
     assert floats[3] == F(1) / F(sp.cpuctExplorationBase)
     assert floats[7] == F(sp.cpuctUtilityStdevPrior**2)
-    assert list(ints) == [1, 1, 3]  # stdev factor on, fpu by visited policy, pow 2 = x * x
+    assert list(ints) == [1, 1, 3, 0]  # stdev factor on, fpu by visited policy, pow 2 = x * x, no graph
+    assert list(descend.select_constants(SearchParams.for_selfplay())[1]) == [0, 1, 3, 1]
+
+
+def test_layout_constants_match_the_kernel_source():
+    """The wrapper's argument layout (`_NUM_FLOATS`, `_NUM_INTS`,
+    `_NUM_POINTERS`) is the one `descend_kernel.cu` declares, so the layout
+    check at load time compares like with like."""
+    import re
+
+    src = descend.SOURCE.read_text()
+    declared = {k: int(v) for k, v in re.findall(r"constexpr int (kNum\w+) = (\d+);", src)}
+    assert declared == {"kNumFloats": descend._NUM_FLOATS, "kNumInts": descend._NUM_INTS,
+                        "kNumPointers": descend._NUM_POINTERS}
+    floats, ints = descend.select_constants(SearchParams.for_selfplay())
+    assert (floats.size, ints.size) == (descend._NUM_FLOATS, descend._NUM_INTS)
 
 
 def test_cpu_tensors_take_the_plain_descent_without_a_launch():
@@ -395,6 +440,9 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     wide = TM.make_level_scratch(TB.GameConfig(16, 16, 5), node.shape[0], scratch.child_c.shape[1], "cpu")
     with pytest.raises(ValueError, match="candidate lanes"):
         descend.descend_interior(sp, cand, tree, node, depth, active, path, acts, wide)
+    leak = SearchParams(useGraphSearch=True, graphSearchCatchUpLeakProb=0.1)
+    with pytest.raises(ValueError, match="graphSearchCatchUpLeakProb"):
+        descend.descend_interior(leak, cand, tree, node, depth, active, path, acts, scratch)
 
 
 def test_cuda_search_without_a_card_raises():

@@ -19,6 +19,7 @@ from katacoffee_tpu_torch.nn.features import (
     NUM_FEATURES_SPATIAL,
     extract_features,
 )
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CFG = JB.GameConfig(5, 5, 4)
 TCFG = TB.GameConfig(5, 5, 4)

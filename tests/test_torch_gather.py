@@ -15,6 +15,7 @@ from jax.experimental import pallas as pl
 import katacoffee_tpu.ops.gather as G
 from katacoffee_tpu_torch.ops import _build
 from katacoffee_tpu_torch.ops.gather import SOURCE, gather_rows, gather_rows_plain
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SHAPES = [(16, 64, 8, 24), (8, 130, 8, 100)]
 

@@ -39,6 +39,14 @@ def test_no_jax_or_reference_package_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_selfplay_slice_modules_are_checked():
+    """The modules of the selfplay slice are among the sources checked
+    above (every module of the package is)."""
+    sources = _port_sources()
+    for rel in ("game/symmetry.py", "search/mcts.py", "ops/descend.py"):
+        assert PORT / rel in sources, rel
+
+
 def test_forbidden_match_is_exact():
     assert _forbidden("katacoffee_tpu") and _forbidden("katacoffee_tpu.search")
     assert _forbidden("jax.numpy") and not _forbidden("katacoffee_tpu_torch.search")

@@ -21,6 +21,7 @@ from katacoffee_tpu.nn.model import ModelSpec as JaxSpec
 from katacoffee_tpu.nn.model import init_params
 from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model, params_from_jax
 from katacoffee_tpu_torch.nn.model import CoffeeNet, ModelSpec
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 torch.set_grad_enabled(False)
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from katacoffee_tpu.game.board import GameConfig
 from katacoffee_tpu.nn.features import NUM_FEATURES_GLOBAL, NUM_FEATURES_SPATIAL
 from katacoffee_tpu.nn.model import CoffeeNet, ModelSpec, init_params
+from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 
 torch.set_grad_enabled(False)
 

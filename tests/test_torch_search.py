@@ -2,7 +2,25 @@
 JAX `run_search` on a fresh tree: the same roots and net (float32 on both
 sides), root visit counts equal exactly, root values within 2e-4 and play
 selection weights within 1e-5. The default `SearchParams()` profile draws no
-random numbers, so the two searches are the same computation."""
+random numbers, so the two searches are the same computation.
+
+The rounding contract. The port rounds as torch does, not as XLA on the CPU
+does: torch's `pow(x, 0.5)` is a square root where XLA's is not, and row
+sums add in another order. The card's kernels are bit-identical to torch's
+rounding, and JAX on a TPU does not round like XLA on the CPU either, so
+XLA-CPU's rounding is no reference to copy into a CUDA kernel. What the port
+is held to instead:
+  * a stats row that the port recomputes from the same inputs as JAX agrees
+    with JAX's within |d| <= 8 * 2**-24 * max(|x|, 1) in every channel
+    (ULP_BOUND; a handful of float32 roundings of values of order x);
+  * a descent decision may differ from JAX's only where JAX's two best
+    scores tie exactly, or lie within that bound of each other;
+  * whole-search tests that assert exact visit counts use real nets
+    (tinynet, b6c96), whose scores do not tie; with `uniform_eval_fn` exact
+    ties are common. The pinned input below (5x5 win 4, `SearchParams()`,
+    `uniform_eval_fn`, one late root with 2 legal moves) shows a 1-ulp
+    difference at 11 playouts, JAX's two root children tied exactly at 15
+    root visits, and the trees parting at the next playout."""
 
 import dataclasses
 import functools
@@ -24,6 +42,7 @@ from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
 from katacoffee_tpu_torch.game import board as TB
 from katacoffee_tpu_torch.search import mcts as TM
 from katacoffee_tpu_torch.search.params import SearchParams
+from torch_parity import one_torch_thread, torch_tree  # noqa: F401 (autouse fixture)
 
 CFG = JB.GameConfig(5, 5, 4)
 TCFG = TB.GameConfig(5, 5, 4)
@@ -106,6 +125,92 @@ def test_b6c96_matches_jax():
     _compare(JaxParams(), SearchParams(), B6C96, GOLDEN_PLAN[1:], 32)
 
 
+ULP_BOUND = 8 * 2.0**-24
+PINNED_PLAN = [[(1, 14)]]
+
+
+def _within_bound(got, want):
+    return np.abs(got - want) <= ULP_BOUND * np.maximum(np.abs(want), 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _pinned_jax_trees(sims=15):
+    """JAX trees of the pinned root after 0..`sims` playouts, one jitted
+    `_simulate_once` at a time (the body of `run_search`'s loop), as numpy
+    pytrees, and the root."""
+    jroots = _nth_legal_actions(PINNED_PLAN)
+    jev = JM.uniform_eval_fn(CFG)
+    sp = JaxParams()
+    tree = JM.init_tree(CFG, sp, jev, jroots, sims + 2, jax.random.PRNGKey(0))
+    one = jax.jit(lambda t, k: JM._simulate_once(CFG, sp, jev, t, k, CFG.area + 1)[0])
+    trees = [tree]
+    for i in range(sims):
+        tree = one(tree, jax.random.PRNGKey(i))
+        trees.append(tree)
+    return jroots, [jax.tree_util.tree_map(np.asarray, t) for t in trees]
+
+
+def _pinned_port_tree(sims):
+    jroots, _ = _pinned_jax_trees()
+    return TM.run_search(TCFG, SearchParams(), TM.uniform_eval_fn(TCFG), _torch_roots(jroots), sims, 17,
+                         device="cpu")
+
+
+def test_pinned_root_rounds_within_the_bound_and_parts_after_an_exact_tie():
+    """The smallest input on which the port's rounding parts from JAX's: at
+    11 playouts node 1's S_WSQ differs (5.999999046 in JAX, 5.999999523 in
+    the port) and lies within the bound, as does every other entry; at 15
+    root visits JAX's two root children are tied exactly in every input of
+    the PUCT score, while the port's S_W differ by one ulp; one playout
+    later the root visits are (8, 7) on one side and (7, 8) on the other."""
+    _, jt = _pinned_jax_trees()
+    t11 = _pinned_port_tree(11)
+    j11 = jt[11].stats[0]
+    assert j11[1, TM.S_WSQ] != t11.stats[0, 1, TM.S_WSQ].item()
+    assert _within_bound(t11.stats[0].numpy(), j11).all()
+
+    j14, t14 = jt[14], _pinned_port_tree(14)
+    root_kids = np.flatnonzero(j14.children[0, 0] >= 0)
+    assert len(root_kids) == 2 and np.array_equal(j14.children[0, 0, root_kids], [1, 2])
+    assert j14.stats[0, 0, TM.S_VISITS] == 15
+    rows = j14.stats[0, [1, 2]]
+    for ch in (TM.S_VISITS, TM.S_W, TM.S_U):
+        assert rows[0, ch] == rows[1, ch], ch
+    assert j14.edge_visits[0, 0, root_kids[0]] == j14.edge_visits[0, 0, root_kids[1]]
+    assert j14.root_prior[0, root_kids[0]] == j14.root_prior[0, root_kids[1]]
+    t_rows = t14.stats[0, [1, 2]].numpy()
+    assert t_rows[0, TM.S_W] != t_rows[1, TM.S_W]
+    assert _within_bound(t_rows, rows).all()
+
+    j15 = jt[15].edge_visits[0, 0, root_kids]
+    t15 = _pinned_port_tree(15).edge_visits[0, 0, root_kids].numpy()
+    assert sorted(j15) == sorted(t15) == [7, 8] and not np.array_equal(j15, t15)
+
+
+@pytest.mark.parametrize("sims", [11, 14, 15])
+def test_recompute_steps_match_jax_within_the_bound(sims):
+    """Step parity: JAX's tree after playout `sims` loaded into the port,
+    and the port's `_recompute_node` run on every node that playout
+    recomputed (the non-terminal nodes whose visits it raised); each row
+    agrees with JAX's within the bound, visits exactly."""
+    _, jt = _pinned_jax_trees()
+    before, after = jt[sims - 1], jt[sims]
+    loaded = torch_tree(after)
+    raised = np.flatnonzero(
+        (after.stats[0, :, TM.S_VISITS] > before.stats[0, :, TM.S_VISITS])
+        & (np.arange(after.stats.shape[1]) < before.node_count[0])
+        & ~after.is_terminal[0]
+    )
+    assert len(raised) >= 2
+    for n in raised:
+        tree = loaded._replace(stats=loaded.stats.clone())
+        TM._recompute_node(SearchParams(), tree, torch.tensor([n]), torch.tensor([True]))
+        got = tree.stats[0, n].numpy()
+        want = after.stats[0, n]
+        assert got[TM.S_VISITS] == want[TM.S_VISITS] + 1
+        assert _within_bound(got[1:], want[1:]).all(), (sims, n, got, want)
+
+
 def test_deep_roots_with_terminals_and_a_full_tree_match_jax():
     """Late-game roots reach terminal nodes (revisits) and a node budget
     below the playout count overflows the tree."""
@@ -144,23 +249,25 @@ def test_selection_branches_match_jax(extra):
 @pytest.mark.parametrize(
     "kw,flag",
     [
-        (dict(useGraphSearch=True), "useGraphSearch"),
-        (dict(rootNoiseEnabled=True), "rootNoiseEnabled"),
-        (dict(rootNumSymmetriesToSample=4), "rootNumSymmetriesToSample"),
-        (dict(subtreeValueBiasFactor=0.3), "subtreeValueBiasFactor"),
         (dict(useNoisePruning=True), "useNoisePruning"),
         (dict(useUncertainty=True), "useUncertainty"),
-        (dict(rootPolicyTemperature=1.1), "rootPolicyTemperature"),
         (dict(numSearchThreads=2), "numSearchThreads"),
+        (dict(policyOptimism=0.5), "policyOptimism"),
+        (dict(rootPolicyOptimism=0.5), "rootPolicyOptimism"),
+        (dict(rootSymmetryPruning=True), "rootSymmetryPruning"),
+        (dict(useGraphSearch=True, graphSearchCatchUpLeakProb=0.1), "graphSearchCatchUpLeakProb"),
     ],
 )
 def test_unported_settings_raise(kw, flag):
+    """The settings the port does not take yet raise, naming themselves;
+    those ported in this slice are held to JAX in
+    tests/test_torch_search_settings.py."""
     roots = TB.init_state(TCFG, 2, "cpu")
     with pytest.raises(NotImplementedError, match=flag):
         TM.run_search(TCFG, SearchParams(**kw), TM.uniform_eval_fn(TCFG), roots, 4, device="cpu")
 
 
-@pytest.mark.parametrize("arg", ["reuse_tree", "root_hint", "root_avoid", "avoid_until"])
+@pytest.mark.parametrize("arg", ["root_avoid", "avoid_until"])
 def test_unported_arguments_raise(arg):
     roots = TB.init_state(TCFG, 2, "cpu")
     with pytest.raises(NotImplementedError, match=arg):
@@ -168,9 +275,17 @@ def test_unported_arguments_raise(arg):
                       **{arg: torch.zeros(2)})
 
 
-def test_selfplay_profile_and_eval_symmetries_raise():
-    roots = TB.init_state(TCFG, 2, "cpu")
-    with pytest.raises(NotImplementedError):
-        TM.run_search(TCFG, SearchParams.for_selfplay(), TM.uniform_eval_fn(TCFG), roots, 4, device="cpu")
+def test_eval_symmetries_raise():
     with pytest.raises(NotImplementedError, match="symmetry_randomize"):
         TM.make_nn_eval_fn(TCFG, None, symmetry_randomize=True)
+
+
+def test_random_settings_without_a_generator_raise():
+    """A search that draws at its root needs a generator or its draws."""
+    roots = TB.init_state(TCFG, 2, "cpu")
+    for kw in (dict(rootNoiseEnabled=True), dict(rootNumSymmetriesToSample=4)):
+        with pytest.raises(ValueError, match="Generator"):
+            TM.run_search(TCFG, SearchParams(**kw), TM.uniform_eval_fn(TCFG), roots, 4, device="cpu")
+    tree = TM.run_search(TCFG, SearchParams(), TM.uniform_eval_fn(TCFG), roots, 4, device="cpu")
+    with pytest.raises(ValueError, match="Generator"):
+        TM.select_moves(TCFG, SearchParams.for_selfplay(), tree)

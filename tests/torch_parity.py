@@ -1,0 +1,164 @@
+"""Helpers shared by the tests of the PyTorch port: a fixture that keeps
+torch on one CPU thread, and, for the tests that hold the search
+(`katacoffee_tpu_torch.search.mcts`) to the JAX one under the selfplay
+profile, the JAX search run with its root draws recorded, those draws handed
+to the port as `RootDraws`, and trees converted between the two packages.
+
+The JAX search draws at the root only (graphSearchCatchUpLeakProb is 0): the
+root symmetries from `k_pick` and the Dirichlet noise's gamma sample from
+`k_noise`, both split off the search key (`run_search` :2422 `k_init`;
+`init_tree` :797 `k_eval`, `k_noise`; `_root_eval` :460 `k_pick`; for a
+reused tree `advance_root` :2671 `k_eval`, `k_noise1`, `k_noise2`). The
+symmetries are derived here from that key chain. The gamma sample depends
+on the alphas the JAX search computes, so `jax.random.gamma` is wrapped to
+record what it returns (through a debug callback, which runs under jit), and
+the key it was called with is checked against the chain."""
+
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from katacoffee_tpu.game import symmetry as JS
+from katacoffee_tpu.search import mcts as JM
+from katacoffee_tpu_torch.game import board as TB
+from katacoffee_tpu_torch.search import mcts as TM
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Runs a test module's torch ops on one CPU thread, then restores the
+    count. The tests' tensors are tiny, and pytest-xdist runs several
+    workers at once: torch's thread pool in each of them only contends for
+    the cores (the port's tests took about 2.4x as long with it). Imported by
+    every tests/test_torch_*.py module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def recorded_gamma():
+    """Wraps jax.random.gamma; yields the list of (key, sample) numpy pairs
+    of its calls, recorded when they run (also under jit)."""
+    calls = []
+    orig = jax.random.gamma
+
+    def gamma(key, a, *args, **kw):
+        out = orig(key, a, *args, **kw)
+        jax.debug.callback(lambda k, o: calls.append((np.asarray(k), np.asarray(o))), key, out)
+        return out
+
+    jax.random.gamma = gamma
+    try:
+        yield calls
+    finally:
+        jax.random.gamma = orig
+
+
+def symmetry_draws(cfg, jsp, k_eval, batch):
+    """[B, k] root symmetries `_root_eval` draws from `k_eval`, or None."""
+    nsym = JS.num_symmetries(cfg)
+    k = min(int(jsp.rootNumSymmetriesToSample), nsym)
+    if k <= 1:
+        return None
+    k_pick, _ = jax.random.split(k_eval)
+    perm = np.asarray(jnp.argsort(jax.random.uniform(k_pick, (batch, nsym)), axis=-1))
+    return torch.from_numpy(perm[:, :k].copy())
+
+
+def _gamma_draw(calls, i, key):
+    assert np.array_equal(calls[i][0], np.asarray(key)), "the gamma sample is not the key chain's"
+    return torch.from_numpy(calls[i][1].copy())
+
+
+def jax_search(cfg, jsp, jev, jroots, visits, key, max_nodes=None, **reuse):
+    """JAX `run_search` with `with_diag`, jitted, and the `TM.RootDraws`
+    that reproduce its root draws in the port. `reuse` holds reuse_tree,
+    reuse_actions, reuse_ok."""
+    B = jroots.board.shape[0]
+    with recorded_gamma() as calls:
+        search = jax.jit(lambda r, k, kw: JM.run_search(cfg, jsp, jev, r, visits, k, max_nodes=max_nodes,
+                                                        with_diag=True, **kw))
+        jtree, diag = jax.block_until_ready(search(jroots, key, reuse))
+        jax.effects_barrier()
+    k_init, _ = jax.random.split(key)
+    noise = jsp.rootNoiseEnabled
+    if reuse.get("reuse_tree") is None:
+        k_eval, k_noise = jax.random.split(k_init)
+        draws = TM.RootDraws(syms=symmetry_draws(cfg, jsp, k_eval, B),
+                             gamma=_gamma_draw(calls, 0, k_noise) if noise else None)
+    else:
+        k_eval, k_noise1, k_noise2 = jax.random.split(k_init, 3)
+        draws = TM.RootDraws(syms=symmetry_draws(cfg, jsp, k_eval, B),
+                             gamma=_gamma_draw(calls, 0, k_noise1) if noise else None,
+                             gamma_reused=_gamma_draw(calls, 1, k_noise2) if noise else None)
+    assert len(calls) == (0 if not noise else 1 if reuse.get("reuse_tree") is None else 2)
+    return jtree, diag, draws
+
+
+def torch_states(jstates):
+    """A JAX GameState batch as the port's (uint32 and int32 as int64)."""
+    def conv(x):
+        x = np.asarray(x)
+        return torch.from_numpy(x.astype(np.int64) if x.dtype in (np.uint32, np.int32) else x.copy())
+
+    return TB.GameState(*(conv(x) for x in jstates))
+
+
+def torch_tree(jtree):
+    """A JAX Tree as the port's (integer fields as the port holds them)."""
+    fields = {}
+    for name in TM.Tree._fields:
+        x = getattr(jtree, name)
+        if name == "states":
+            fields[name] = torch_states(x)
+            continue
+        x = np.asarray(x)
+        t = torch.from_numpy(x.copy())
+        if name in ("children", "edge_visits", "policy_rank"):
+            t = t.to(torch.int32)
+        elif x.dtype in (np.int32, np.uint32):
+            t = torch.from_numpy(x.astype(np.int64))
+        fields[name] = t
+    return TM.Tree(**fields)
+
+
+def jax_tree(ttree):
+    """The port's Tree as a JAX Tree (the JAX package's dtypes)."""
+    def states(s):
+        return JM.GameState(*(
+            jnp.asarray(x.numpy().astype(np.uint32 if name == "stone_hash" else
+                                         np.int32 if x.dtype == torch.int64 else x.numpy().dtype))
+            for name, x in s._asdict().items()
+        ))
+
+    fields = {}
+    for name in TM.Tree._fields:
+        x = getattr(ttree, name)
+        if name == "states":
+            fields[name] = states(x)
+        elif name == "sit_hash":
+            fields[name] = jnp.asarray(x.numpy().astype(np.uint32))
+        elif x.dtype == torch.int64:
+            fields[name] = jnp.asarray(x.numpy().astype(np.int32))
+        else:
+            fields[name] = jnp.asarray(x.numpy())
+    return JM.Tree(**fields)
+
+
+def assert_same_search(jtree, ttree):
+    """Root visit counts, node counts and child links equal; root values
+    within 2e-4 (float32 sums of another order over a whole search)."""
+    jv = np.asarray(JM.root_visit_counts(jtree))
+    tv = TM.root_visit_counts(ttree).numpy()
+    assert np.array_equal(tv, jv), (tv[tv != jv], jv[tv != jv])
+    assert np.array_equal(ttree.node_count.numpy(), np.asarray(jtree.node_count))
+    assert np.array_equal(ttree.children.numpy(), np.asarray(jtree.children))
+    jr, tr = JM.root_values(jtree), TM.root_values(ttree)
+    for k in jr:
+        np.testing.assert_allclose(tr[k].numpy(), np.asarray(jr[k]), atol=2e-4, rtol=0, err_msg=k)
