@@ -6,7 +6,7 @@ checks it. Usage, from the root of the repository:
 
 Phases, each printed with the seconds since start; the first failure ends
 the run with a non-zero exit and a traceback:
-  0. arm a 600 s watchdog; print the card (nvidia-smi) and torch's version;
+  0. arm a 1100 s watchdog; print the card (nvidia-smi) and torch's version;
      turn TF32 off so float32 means float32 in every comparison;
   1. build the two CUDA kernels from the repo's sources, both nvcc runs at
      once, and print their register and spill counts;
@@ -29,13 +29,19 @@ the run with a non-zero exit and a traceback:
      against the plain gather (identical), and both kernels against both
      plain versions (identical games counted, total variation within
      TV_MAX); then card against CPU at float32 on B=8;
-  5. the slice's main path, the selfplay actor's per-move search: B=512
-     b6c96 bf16, 600 visits, N=182 slots, a fresh search, its readouts, the
-     step and a search on the reused tree, with the launch counts reset
-     before and read after (one descent launch per simulation run); then,
-     under the selfplay profile, both kernels against both plain versions at
-     B=64 with one generator seed (identical root visits in every game) and
-     card against CPU at float32 on B=8 with the same root draws;
+  5. the slice's main path, bench.py's measurement on the port: the
+     selfplay actor's `run_selfplay_segment` at B=512, 600 visits, N=182,
+     b6c96 bf16, one untimed 2-move segment from empty boards, then 8 timed
+     ones carrying states and episode ids (delivered visits/s, per-move
+     walls, the actor's share), with the launch counts reset before and
+     read after (one descent launch per simulation run) and the readouts
+     checked on every move; then the rest of the actor: games that finish
+     (B=64 16-move segments until every game ended, then finalize_targets)
+     with both kernels against both plain versions under one generator seed
+     (every field identical), card against CPU at float32 on a B=8 4-move
+     segment with the same injected draws, and side positions, whole-game
+     forks and tree records at B=512 (configs/selfplay.cfg's probabilities)
+     with run_side_segment;
   6. profiles of a short B=512 search under both profiles (device busy
      share, launches and host syncs per playout);
   7. the kernel table as one JSON line, then the result line.
@@ -212,6 +218,26 @@ def random_positions(cfg, batch: int, seed: int):
             torch.where(keep.reshape((batch,) + (1,) * (o.dim() - 1)), n, o) for o, n in zip(s, new)
         ))
     return s
+
+
+def ending_positions(cfg, batch: int, seed: int):
+    """`batch` positions on the CPU 1-4 plies before the end of a random
+    legal game, so that games end within a few moves."""
+    import numpy as np
+    import torch
+
+    from katacoffee_tpu_torch.game import board as B
+
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < batch:
+        s, line = B.init_state(cfg, 1, "cpu"), []
+        while not bool(s.done[0]):
+            line.append(s)
+            legal = torch.nonzero(B.legal_mask_flat(cfg, s)[0])[:, 0]
+            s = B.step(cfg, s, legal[int(rng.integers(len(legal)))].reshape(1))
+        out.append(line[max(0, len(line) - int(rng.integers(1, 5)))])
+    return B.GameState(*(torch.cat(f) for f in zip(*out)))
 
 
 def descent_inputs(cfg, sp, tree):
@@ -543,7 +569,7 @@ def phase_search(dev, cfg, positions, bench_batch=512, bench_visits=600, ab_batc
     sp = SearchParams()
     net16 = load_exported_model(MODEL_DIR, dev)[0]
     eval16 = mcts.make_nn_eval_fn(cfg, net16)
-    reps = 3
+    reps = 1
     searches = reps + 1
 
     gather_rows.launches = 0
@@ -617,181 +643,386 @@ def phase_search(dev, cfg, positions, bench_batch=512, bench_visits=600, ab_batc
             "ab_games": ab_games, "ab_tv": ab_tv}
 
 
-def phase_selfplay(dev, cfg, batch=512, visits=600, nodes=182):
-    """The slice's main path, the selfplay actor's per-move search: a fresh
-    for_selfplay search of `visits` playouts from the empty board with N =
-    `nodes` slots, its readouts (policy_target, select_moves, root_values),
-    the step, then a search on the reused tree and its readouts. Both
-    kernels' launch counts are reset before and read after; one descent
-    launch per simulation run, and the gather at every search's root and
-    readouts. Timed per move, between device synchronizations, after one
-    untimed fresh search."""
+SELFPLAY_METRIC = "selfplay_delivered_visits_per_sec_b6c96_600visits"
+
+
+def concat_trajectories(trajs):
+    """Trajectories of consecutive segments as one, moves along dim 0."""
+    import torch
+
+    from katacoffee_tpu_torch.game.board import GameState
+    from katacoffee_tpu_torch.selfplay.actor import Trajectory
+
+    return Trajectory(*(
+        GameState(*(torch.cat(f) for f in zip(*xs))) if isinstance(xs[0], tuple) else torch.cat(xs)
+        for xs in zip(*trajs)
+    ))
+
+
+def check_segment(cfg, traj, visits, label) -> None:
+    """The readout checks on every move of a segment: finite policy targets
+    and values, policy targets summing to 1, legal played moves, visits + 1
+    root visits."""
+    import torch
+
+    from katacoffee_tpu_torch.game.board import legal_mask_flat
+
+    T, B = traj.played_action.shape
+    flat = traj.states.map(lambda x: x.reshape((T * B,) + x.shape[2:]))
+    pt = traj.policy_target.reshape(T * B, -1)
+    for name in ("policy_target", "root_wl", "root_draw", "raw_policy", "raw_value"):
+        if not torch.isfinite(getattr(traj, name)).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+    if not torch.allclose(pt.sum(-1), torch.ones((), device=pt.device), atol=1e-5):
+        raise AssertionError(f"{label}: policy targets do not sum to 1")
+    if not legal_mask_flat(cfg, flat)[torch.arange(T * B, device=pt.device), traj.played_action.reshape(-1)].all():
+        raise AssertionError(f"{label}: an illegal move was played")
+    if not (traj.root_visits == visits + 1).all():
+        raise AssertionError(f"{label}: a root does not have {visits + 1} visits")
+
+
+def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=8):
+    """The slice's main path, bench.py's measurement: `run_selfplay_segment`
+    at B=512, SelfplaySettings(num_sims=600) (policy-init openings, tree
+    reuse, N=182), for_selfplay, b6c96 bf16, 2-move segments from empty
+    boards carrying states and episode ids: one untimed segment, then
+    `segments` timed ones. Both kernels' launch counts are reset before the
+    timed segments and read after; the simulations, backup levels and each
+    search's wall time (between device synchronizations) are counted by
+    wrappers around the search's functions."""
     import torch
 
     from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
-    from katacoffee_tpu_torch.game.board import init_state, legal_mask_flat, step
+    from katacoffee_tpu_torch.game.board import init_state
     from katacoffee_tpu_torch.ops.descend import descend_interior
     from katacoffee_tpu_torch.ops.gather import gather_rows
     from katacoffee_tpu_torch.search import mcts
     from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.selfplay.actor import SelfplaySettings, run_selfplay_segment
 
     sp = SearchParams.for_selfplay()
+    settings = SelfplaySettings(num_sims=visits)
+    if settings.nodes() != 182 and visits == 600:
+        raise AssertionError(f"node budget {settings.nodes()}, not 182")
     evaluate = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
-    roots = init_state(cfg, batch, dev)
-    hint = torch.full((batch,), -1, dtype=torch.int64, device=dev)
     generator = torch.Generator(device=dev).manual_seed(0)
-    mcts.run_search(cfg, sp, evaluate, roots, visits, nodes, device=dev, generator=generator, root_hint=hint)
+    states = init_state(cfg, batch, dev)
+    episode = torch.zeros((batch,), dtype=torch.int64, device=dev)
+    states, episode, _ = run_selfplay_segment(cfg, sp, settings, evaluate, states, episode, moves, device=dev,
+                                              generator=generator)
     torch.cuda.synchronize()
 
-    def readouts(tree, states, label):
-        target = mcts.policy_target(tree, sp)
-        moves = mcts.select_moves(cfg, sp, tree, generator=generator)
-        values = mcts.root_values(tree)
-        live = ~states.done
-        bidx = torch.arange(batch, device=dev)
-        if not (torch.isfinite(tree.stats).all() and torch.isfinite(target).all()
-                and torch.isfinite(values["root_utility"]).all()):
-            raise AssertionError(f"{label}: non-finite tree stats, policy target or root values")
-        if not torch.allclose(target.sum(-1)[live], torch.ones((), device=dev), atol=1e-5):
-            raise AssertionError(f"{label}: policy targets do not sum to 1")
-        if not legal_mask_flat(cfg, states)[bidx, moves][live].all():
-            raise AssertionError(f"{label}: select_moves chose an illegal move")
-        if not (values["root_visits"][live] == visits + 1).all():
-            raise AssertionError(f"{label}: a root does not have {visits + 1} visits")
-        return moves
+    counts = {"sims": 0, "levels_fresh": 0, "levels_reused": 0, "sims_fresh": 0, "sims_reused": 0}
+    walls = {"fresh": [], "reused": []}
+    last = {}
+    kept = (mcts.run_search, mcts._simulate_once, mcts._recompute_node)
+    phase = ["fresh"]
 
-    # the backup recomputes one tree level per call, so its calls per
-    # simulation are the batch's deepest path, which sets a playout's host work
-    recomputes = [0]
-    kept = mcts._recompute_node
+    def search(*args, **kwargs):
+        phase[0] = "reused" if kwargs.get("reuse_tree") is not None else "fresh"
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        tree = kept[0](*args, **kwargs)
+        torch.cuda.synchronize()
+        walls[phase[0]].append(time.monotonic() - t)
+        if phase[0] == "reused":
+            last.update(tree=tree, args=args, kwargs=kwargs)
+        return tree
 
-    def counting(*args, **kwargs):
-        recomputes[0] += 1
-        return kept(*args, **kwargs)
+    def simulate(*args, **kwargs):
+        counts["sims"] += 1
+        counts["sims_" + phase[0]] += 1
+        return kept[1](*args, **kwargs)
 
-    ok = torch.ones((batch,), dtype=torch.bool, device=dev)
-    mcts._recompute_node = counting
+    def recompute(*args, **kwargs):
+        # one tree level per call: its calls per simulation are the batch's
+        # deepest backup path, which sets a playout's host work
+        counts["levels_" + phase[0]] += 1
+        return kept[2](*args, **kwargs)
+
+    mcts.run_search, mcts._simulate_once, mcts._recompute_node = search, simulate, recompute
+    trajs = []
     try:
         gather_rows.launches = 0
         descend_interior.launches = 0
         t = time.monotonic()
-        tree, diag1 = mcts.run_search(cfg, sp, evaluate, roots, visits, nodes, device=dev, generator=generator,
-                                      root_hint=hint, with_diag=True)
+        for _ in range(segments):
+            states, episode, traj = run_selfplay_segment(cfg, sp, settings, evaluate, states, episode, moves,
+                                                         device=dev, generator=generator)
+            trajs.append(traj)
         torch.cuda.synchronize()
-        fresh_s = time.monotonic() - t
-        fresh_levels = recomputes[0]
-        moves = readouts(tree, roots, "fresh move")
-        after = step(cfg, roots, moves)
-        t = time.monotonic()
-        tree2, diag2 = mcts.run_search(cfg, sp, evaluate, after, visits, nodes, device=dev, generator=generator,
-                                       reuse_tree=tree, reuse_actions=moves, reuse_ok=ok, root_hint=hint,
-                                       with_diag=True)
-        torch.cuda.synchronize()
-        reused_s = time.monotonic() - t
-        reused_levels = recomputes[0] - fresh_levels
-        readouts(tree2, after, "reused move")
+        wall = time.monotonic() - t
         launches = {"gather_rows": gather_rows.launches, "descend_interior": descend_interior.launches}
     finally:
-        mcts._recompute_node = kept
+        mcts.run_search, mcts._simulate_once, mcts._recompute_node = kept
+
+    traj = concat_trajectories(trajs)
+    check_segment(cfg, traj, visits, "selfplay segment")
+    delivered = batch * visits * moves * segments / wall
+    search_s = sum(walls["fresh"]) + sum(walls["reused"])
+    resets = int(traj.done_after.sum())
+    out = {
+        "launches": launches, "sims": counts["sims"], "wall_s": wall, "delivered_vps": delivered,
+        "fresh_move_ms": statistics.mean(walls["fresh"]) * 1e3,
+        "reused_move_ms": statistics.mean(walls["reused"]) * 1e3,
+        "actor_share": 1.0 - search_s / wall, "resets": resets,
+        "fresh_levels_per_sim": counts["levels_fresh"] / max(counts["sims_fresh"], 1),
+        "reused_levels_per_sim": counts["levels_reused"] / max(counts["sims_reused"], 1),
+        "reused_sims_per_move": counts["sims_reused"] / max(len(walls["reused"]), 1),
+        "states": states, "episode": episode, "traj": traj, "tree": last["tree"],
+    }
     advance_ms = []
+    kw = last["kwargs"]
     for _ in range(3):
         t = time.monotonic()
-        mcts.advance_root(cfg, sp, evaluate, tree, moves, after, generator=generator, reuse_ok=ok, root_hint=hint)
+        mcts.advance_root(cfg, sp, evaluate, kw["reuse_tree"], kw["reuse_actions"], last["args"][3],
+                          generator=generator, reuse_ok=kw["reuse_ok"], root_hint=kw["root_hint"])
         torch.cuda.synchronize()
         advance_ms.append((time.monotonic() - t) * 1e3)
-
-    sims = diag1["rounds"] + diag2["rounds"]
-    start = diag2["start_visits"]
-    fresh_visits = batch * visits
-    reused_visits = int((tree2.stats[:, 0, mcts.S_VISITS] - start).sum())
-    out = {
-        "launches": launches, "sims": sims, "fresh_s": fresh_s, "reused_s": reused_s,
-        "fresh_vps": fresh_visits / fresh_s, "reused_vps": reused_visits / reused_s,
-        "reused_sims": diag2["rounds"], "mean_start_visits": float(start.mean()),
-        "links": count_links(tree2), "advance_ms": statistics.median(advance_ms),
-        "fresh_levels_per_sim": fresh_levels / diag1["rounds"],
-        "reused_levels_per_sim": reused_levels / diag2["rounds"], "tree": tree2,
-    }
-    log(
-        f"main path (selfplay, B={batch}, {visits} visits, N={nodes}, 2 moves): fresh move "
-        f"{fresh_s * 1e3:.1f} ms, {out['fresh_vps']:.1f} visits/s; reused move {reused_s * 1e3:.1f} ms, "
-        f"{diag2['rounds']} simulations, {reused_visits} new visits, {out['reused_vps']:.1f} visits/s, "
-        f"mean start visits of the reused roots {out['mean_start_visits']:.2f}; {out['links']} "
-        f"transposition links after the second move"
-    )
+    out["advance_ms"] = statistics.median(advance_ms)
+    log(f"{SELFPLAY_METRIC} {delivered:.1f} visits/s (B={batch}, {visits} visits, N={settings.nodes()}, "
+        f"{segments} timed {moves}-move segments, {wall:.3f} s) on {card_line()}")
+    log(f"  per move: fresh (first of a segment) {out['fresh_move_ms']:.1f} ms, reused {out['reused_move_ms']:.1f} ms "
+        f"({out['reused_sims_per_move']:.1f} simulations); the actor's own work outside the searches "
+        f"{out['actor_share']:.2%} of the wall; {resets} games ended and reset; advance_root alone "
+        f"{out['advance_ms']:.1f} ms (median of 3)")
     log(f"  backup levels (_recompute_node calls) per simulation: fresh {out['fresh_levels_per_sim']:.2f}, "
-        f"reused {out['reused_levels_per_sim']:.2f}; advance_root alone {out['advance_ms']:.1f} ms (median of 3)")
-    log(f"  launches: descend_interior {launches['descend_interior']} for {sims} simulations run; "
-        f"gather_rows {launches['gather_rows']} ({launches['gather_rows'] / 2:.1f} per search with its "
-        f"readouts)")
-    if launches["descend_interior"] != sims:
-        raise AssertionError(f"descend_interior launched {launches['descend_interior']} times, not once "
-                             f"per simulation run ({sims})")
+        f"reused {out['reused_levels_per_sim']:.2f}")
+    log(f"  launches in the timed segments: descend_interior {launches['descend_interior']} for {counts['sims']} "
+        f"simulations run; gather_rows {launches['gather_rows']} ({launches['gather_rows'] / (moves * segments):.1f} "
+        f"a move)")
+    if launches["descend_interior"] != counts["sims"]:
+        raise AssertionError(f"descend_interior launched {launches['descend_interior']} times, not once per "
+                             f"simulation run ({counts['sims']})")
     if launches["gather_rows"] == 0:
         raise AssertionError("gather_rows was not launched on the selfplay path")
     return out
 
 
-def phase_selfplay_checks(dev, cfg, positions, ab_batch=64, ab_visits=200, tv_batch=8, tv_visits=64):
-    """Under for_selfplay: both kernels against both plain versions at B=64
-    with the same generator seed on both sides (root visits must be
-    identical), and the card against the CPU at float32 on B=8 with the same
-    root draws passed to both (total variation within TV_MAX)."""
+def phase_selfplay_ab(dev, cfg, batch=64, visits=64, moves=16, max_segments=4):
+    """Games that finish: B=64 segments of 16 moves at 64 visits from empty
+    boards until every game has ended at least once, then finalize_targets,
+    once with both kernels and once with both plain versions, under one
+    generator seed. Every field of every Trajectory and of the TrainingBatch
+    must be identical."""
+    import torch
+
+    import katacoffee_tpu_torch.search.mcts as mcts
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.game.board import init_state
+    from katacoffee_tpu_torch.ops.gather import gather_rows_plain
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.selfplay.actor import SelfplaySettings, finalize_targets, run_selfplay_segment
+
+    sp = SearchParams.for_selfplay()
+    settings = SelfplaySettings(num_sims=visits)
+    evaluate = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
+    kept = (mcts._descend_interior, mcts.gather_rows)
+    results = {}
+    segments = None
+    for name, fns in (("kernels", kept), ("plain", (mcts._descend_interior_plain, gather_rows_plain))):
+        mcts._descend_interior, mcts.gather_rows = fns
+        try:
+            generator = torch.Generator(device=dev).manual_seed(7)
+            states = init_state(cfg, batch, dev)
+            episode = torch.zeros((batch,), dtype=torch.int64, device=dev)
+            trajs = []
+            while len(trajs) < (segments or max_segments):
+                states, episode, traj = run_selfplay_segment(cfg, sp, settings, evaluate, states, episode, moves,
+                                                             device=dev, generator=generator)
+                trajs.append(traj)
+                if segments is None and bool((episode > 0).all()):
+                    break
+            traj = concat_trajectories(trajs)
+            results[name] = (traj, finalize_targets(cfg, settings, traj), states, episode)
+        finally:
+            mcts._descend_interior, mcts.gather_rows = kept
+        segments = len(trajs)
+    traj, batch_k, states, episode = results["kernels"]
+    if not bool((episode > 0).all()):
+        raise AssertionError(f"a game did not end in {segments} segments of {moves} moves")
+    check_segment(cfg, traj, visits, "finishing games")
+    fields = 0
+    for label, a, b in (("trajectory", traj, results["plain"][0]), ("training batch", batch_k, results["plain"][1]),
+                        ("states", states, results["plain"][2])):
+        for name, x, y in zip(a._fields, a, b):
+            for i, (u, v) in enumerate(zip(x, y) if isinstance(x, tuple) else ((x, y),)):
+                fields += 1
+                if not torch.equal(u, v):
+                    raise AssertionError(f"finishing games: {label} field {name}[{i}] differs between the kernels "
+                                         f"and the plain versions")
+    ended = int(traj.done_after.sum())
+    rows = int((batch_k.weight > 0).sum())
+    log(f"finishing games, B={batch} {visits} visits, {segments} segments of {moves} moves: {ended} games ended, "
+        f"{rows} weighted training rows; kernels vs plain versions: all {fields} trajectory, training-batch and "
+        f"state tensors identical")
+    return {"games": batch, "segments": segments, "ended": ended, "rows": rows, "identical_fields": fields,
+            "traj": traj}
+
+
+def phase_selfplay_card_vs_cpu(dev, cfg, batch=8, visits=64, moves=4):
+    """The card against the CPU at float32: a B=8 segment of 4 moves from
+    positions a few plies before a game's end (games end and reset inside
+    it) with the same injected draws on both. Played moves must be equal in
+    every game; a game that parts is printed with its move and the CPU's two
+    top play-selection weights there, and passes only where those two are
+    within NEAR_TIE (relative)."""
     import torch
 
     import katacoffee_tpu_torch.search.mcts as mcts
     from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
     from katacoffee_tpu_torch.game.symmetry import num_symmetries
-    from katacoffee_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.selfplay.actor import MoveDraws, SegmentDraws, SelfplaySettings, run_selfplay_segment
 
     sp = SearchParams.for_selfplay()
-    eval16 = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
-    live = torch.nonzero(~positions.done)[:ab_batch, 0]
-    roots = positions.map(lambda x: x[live])
-    nodes = int(0.3 * ab_visits) + 2
-    kept = (mcts._descend_interior, mcts.gather_rows)
-    visits = {}
-    for name, fns in (("plain", (mcts._descend_interior_plain, gather_rows_plain)), ("kernels", kept)):
-        mcts._descend_interior, mcts.gather_rows = fns
-        try:
-            tree = mcts.run_search(cfg, sp, eval16, roots, ab_visits, nodes, device=dev,
-                                   generator=torch.Generator(device=dev).manual_seed(5))
-        finally:
-            mcts._descend_interior, mcts.gather_rows = kept
-        if not torch.isfinite(tree.stats).all():
-            raise AssertionError(f"selfplay {name}: non-finite tree stats")
-        visits[name] = mcts.root_visit_counts(tree).clone()
-    vk, vp = visits["kernels"], visits["plain"]
-    games = len(live)
-    identical = int((vk == vp).all(-1).sum())
-    tv = 0.5 * (vk.float() / vk.sum(-1, keepdim=True) - vp.float() / vp.sum(-1, keepdim=True)).abs().sum(-1)
-    log(f"selfplay B={games} {ab_visits} visits N={nodes}, both kernels vs both plain versions: {identical} of "
-        f"{games} games with identical root visits, max total variation {tv.max().item():.4f}")
-    if identical != games:
-        raise AssertionError("selfplay search with the kernels differs from the search with the plain versions")
-
-    live = torch.nonzero(~positions.done)[:tv_batch, 0]
-    roots = positions.map(lambda x: x[live])
+    settings = SelfplaySettings(num_sims=visits)
+    roots = ending_positions(cfg, batch, seed=6)
+    A = cfg.policy_size
     g = torch.Generator().manual_seed(6)
     k = min(sp.rootNumSymmetriesToSample, num_symmetries(cfg))
-    draws = mcts.RootDraws(
-        syms=torch.argsort(torch.rand((len(live), num_symmetries(cfg)), generator=g), dim=-1)[:, :k],
-        gamma=torch._standard_gamma(torch.full((len(live), cfg.policy_size), 0.1083), generator=g),
+
+    def gumbel(shape):
+        return -torch.log(torch.empty(shape).exponential_(generator=g))
+
+    draws = SegmentDraws(
+        init_len=torch.empty((batch,)).exponential_(generator=g),
+        moves=tuple(MoveDraws(
+            search=mcts.RootDraws(
+                syms=torch.argsort(torch.rand((batch, num_symmetries(cfg)), generator=g), dim=-1)[:, :k],
+                gamma=torch._standard_gamma(torch.full((batch, A), 0.1083), generator=g),
+                gamma_reused=torch._standard_gamma(torch.full((batch, A), 0.1083), generator=g)),
+            select=gumbel((batch, A)), init_move=gumbel((batch, A)),
+            init_len=torch.empty((batch,)).exponential_(generator=g),
+        ) for _ in range(moves)),
     )
-    dists = []
+    runs = []
+    kept = mcts.policy_target
     for d in (dev, torch.device("cpu")):
+        trees = []
+
+        def recording(tree, sp_):
+            trees.append(mcts.root_play_selection_weights(sp_, tree).cpu())
+            return kept(tree, sp_)
+
         net32 = load_exported_model(MODEL_DIR, d, torch.float32)[0]
-        tree = mcts.run_search(cfg, sp, mcts.make_nn_eval_fn(cfg, net32), roots, tv_visits, device=d,
-                               draws=mcts.RootDraws(*(x.to(d) for x in draws[:2])))
-        v = mcts.root_visit_counts(tree).float().cpu()
-        dists.append(v / v.sum(-1, keepdim=True))
-    card_tv = 0.5 * (dists[0] - dists[1]).abs().sum(-1).max().item()
-    log(f"selfplay B={len(live)} {tv_visits} visits, float32, same root draws: max total-variation card vs cpu "
-        f"{card_tv:.4f} (max {TV_MAX})")
-    if card_tv > TV_MAX:
-        raise AssertionError(f"selfplay root visit distributions differ: TV {card_tv} > {TV_MAX}")
-    return {"ab_identical": identical, "ab_games": games, "ab_tv": tv.max().item(), "card_tv": card_tv}
+        mcts.policy_target = recording
+        try:
+            _, _, traj = run_selfplay_segment(cfg, sp, settings, mcts.make_nn_eval_fn(cfg, net32), roots, torch.zeros(
+                (batch,), dtype=torch.int64), moves, device=d, draws=draws)
+        finally:
+            mcts.policy_target = kept
+        runs.append((traj, trees))
+    (tk, _), (tc, weights) = runs
+    act_k, act_c = tk.played_action.cpu(), tc.played_action
+    parted = []
+    for b in range(batch):
+        differ = torch.nonzero(act_k[:, b] != act_c[:, b])[:, 0]
+        if len(differ) == 0:
+            continue
+        t = int(differ[0])
+        top = torch.topk(weights[t][b], 2).values.tolist()
+        near = top[0] - top[1] <= NEAR_TIE * max(1.0, abs(top[0]))
+        log(f"  card vs cpu: game {b} parts at move {t} (card plays {int(act_k[t, b])}, cpu {int(act_c[t, b])}); "
+            f"the cpu's two top play-selection weights {top[0]:.7g}, {top[1]:.7g}")
+        parted.append((b, t, near))
+    same_visits = bool(torch.equal(tk.root_visits.cpu(), tc.root_visits))
+    pt_diff = (tk.policy_target.cpu() - tc.policy_target).abs().max().item()
+    log(f"card vs cpu, B={batch} {visits} visits {moves} moves float32, same draws: played moves equal in "
+        f"{batch - len(parted)} of {batch} games; max |policy target diff| {pt_diff:.3e}; "
+        f"{int(tc.done_after.sum())} games ended")
+    if not all(near for _, _, near in parted):
+        raise AssertionError("card and cpu segments part where the play-selection weights are not a near tie")
+    return {"games": batch, "parted": len(parted), "max_pt_diff": pt_diff, "same_root_visits": same_visits}
+
+
+def phase_selfplay_branches(dev, cfg, main, window, visits=200, moves=2, seed=3, tree_threshold=50):
+    """Side positions, whole-game forks and tree records at B=512 and 200
+    visits (N=64) with configs/selfplay.cfg's probabilities (sidePositionProb 0.02,
+    earlyForkGameProb 0.04, forkGameProb 0.01) and tree recording
+    (threshold 50, weight 0.25): fork candidates from the finished games of
+    `window` (`extract_fork_candidates`, `choose_fork_moves`, `refill_pool`),
+    one segment from the main path's states consuming that pool, then
+    `run_side_segment` with 128 lanes, `finalize_targets` and
+    `tree_position_rows`."""
+    import numpy as np
+    import torch
+
+    import katacoffee_tpu_torch.search.mcts as mcts
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.selfplay import forking
+    from katacoffee_tpu_torch.selfplay.actor import (
+        SelfplaySettings,
+        finalize_targets,
+        init_side_state,
+        run_selfplay_segment,
+        run_side_segment,
+    )
+    from katacoffee_tpu_torch.selfplay.treerecord import tree_position_rows
+
+    sp = SearchParams.for_selfplay()
+    settings = SelfplaySettings(num_sims=visits, side_position_prob=0.02, side_position_capacity=128,
+                                early_fork_game_prob=0.04, fork_game_prob=0.01, record_tree_positions=True,
+                                record_tree_threshold=tree_threshold, record_tree_target_weight=0.25)
+    evaluate = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    t = time.monotonic()
+    cands = forking.extract_fork_candidates(
+        cfg, window, np.random.default_rng(seed), early_fork_prob=settings.early_fork_game_prob,
+        early_fork_move_prop=settings.early_fork_game_expected_move_prop, fork_prob=settings.fork_game_prob,
+        early_max_choices=settings.early_fork_game_max_choices, fork_max_choices=settings.fork_game_max_choices)
+    pool = forking.init_fork_pool(cfg, settings.fork_pool_capacity, dev)
+    n_cands = 0
+    if cands is not None:
+        idx, max_choices, forced = (torch.from_numpy(x).to(dev) for x in cands)
+        n_cands = len(idx)
+        T, B = window.played_action.shape
+        from_states = window.states.map(lambda x: x.reshape((T * B,) + x.shape[2:])[idx])
+        new = forking.choose_fork_moves(cfg, evaluate, from_states, torch.ones_like(idx, dtype=torch.bool),
+                                        max_choices, forced, device=dev, generator=generator,
+                                        min_choices=settings.fork_game_min_choices,
+                                        num_lanes=settings.fork_game_max_choices)
+        pool = forking.refill_pool(pool, new)
+    pooled = int(pool.valid.sum())
+    torch.cuda.synchronize()
+    fork_s = time.monotonic() - t
+
+    t = time.monotonic()
+    states, episode, traj, pool = run_selfplay_segment(cfg, sp, settings, evaluate, main["states"], main["episode"],
+                                                       moves, device=dev, generator=generator, fork_pool=pool)
+    torch.cuda.synchronize()
+    seg_s = time.monotonic() - t
+    check_segment(cfg, traj, visits, "segment with forks and tree records")
+    popped = pooled - int(pool.valid.sum())
+    batch = finalize_targets(cfg, settings, traj)
+    rows = tree_position_rows(cfg, settings, traj)
+    t = time.monotonic()
+    side, side_batch = run_side_segment(cfg, sp, settings, evaluate, init_side_state(cfg, 128, dev), traj,
+                                        device=dev, generator=generator)
+    torch.cuda.synchronize()
+    side_s = time.monotonic() - t
+    forks = int(traj.fork_valid.sum())
+    side_rows = int(side_batch.weight.sum())
+    tree_rows = int(traj.tree_pos_valid.sum())
+    for label, b in (("segment", batch), ("tree rows", rows), ("side rows", side_batch)):
+        for name, x in zip(b._fields, b):
+            if torch.is_tensor(x) and x.is_floating_point() and not torch.isfinite(x).all():
+                raise AssertionError(f"{label}: non-finite {name}")
+    valid_side = side_batch.weight > 0
+    if side_rows != min(forks, 128) or not torch.allclose(side_batch.policy_target[valid_side].sum(-1),
+                                                          torch.ones((), device=dev), atol=1e-5):
+        raise AssertionError(f"side rows {side_rows} for {forks} forks, or their policy targets do not sum to 1")
+    if tree_rows == 0 or not torch.allclose(rows.policy_target[rows.weight > 0].sum(-1), torch.ones((), device=dev),
+                                            atol=1e-5):
+        raise AssertionError("no tree-position rows, or their policy targets do not sum to 1")
+    log(f"forks and tree records, B={main['states'].board.shape[0]} {visits} visits {moves} moves: "
+        f"{n_cands} fork candidates from {int(window.done_after.sum())} finished games, {pooled} pooled "
+        f"({fork_s * 1e3:.1f} ms), {popped} popped by resetting games; segment {seg_s:.3f} s with {forks} "
+        f"side-position forks and {tree_rows} recorded tree positions; run_side_segment (128 lanes) "
+        f"{side_s:.3f} s, {side_rows} side rows, {int(side.valid.sum())} continuations carried")
+    return {"candidates": n_cands, "pooled": pooled, "popped": popped, "segment_s": seg_s, "forks": forks,
+            "tree_rows": tree_rows, "side_s": side_s, "side_rows": side_rows}
 
 
 PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_lookup", "_bias_keys", "_bias_avg",
@@ -897,7 +1128,7 @@ def profile_searches(dev, cfg, reused_tree, batch=512, sims=20):
 
 
 def main() -> int:
-    faulthandler.dump_traceback_later(600, exit=True)
+    faulthandler.dump_traceback_later(1100, exit=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -934,9 +1165,11 @@ def main() -> int:
     log("phase 4: search, default profile")
     search = phase_search(dev, cfg, positions)
 
-    log("phase 5: the selfplay per-move search (the slice's main path)")
+    log("phase 5: the selfplay actor's segment (the slice's main path), then the rest of the actor")
     selfplay = phase_selfplay(dev, cfg)
-    checks = phase_selfplay_checks(dev, cfg, positions)
+    finishing = phase_selfplay_ab(dev, cfg)
+    card_cpu = phase_selfplay_card_vs_cpu(dev, cfg)
+    branches = phase_selfplay_branches(dev, cfg, selfplay, finishing.pop("traj"))
 
     log("phase 6: profiles")
     profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
@@ -991,12 +1224,13 @@ def main() -> int:
         "ab_identical_games": search["ab_identical"],
         "ab_games": search["ab_games"],
         "ab_max_tv": search["ab_tv"],
-        "selfplay_ab_identical_games": checks["ab_identical"],
-        "selfplay_ab_games": checks["ab_games"],
-        "selfplay_ab_max_tv": checks["ab_tv"],
+        "selfplay_finishing_games_identical_fields": finishing["identical_fields"],
+        "selfplay_finishing_games": finishing["games"],
+        "selfplay_card_vs_cpu_parted_games": card_cpu["parted"],
     }
-    log(f"phase 7: done; default B=512 600-visit search {search['vps']:.1f} visits/s; selfplay fresh move "
-        f"{selfplay['fresh_vps']:.1f} visits/s, reused move {selfplay['reused_vps']:.1f} visits/s")
+    log(f"phase 7: done; default B=512 600-visit search {search['vps']:.1f} visits/s; {SELFPLAY_METRIC} "
+        f"{selfplay['delivered_vps']:.1f} (fresh move {selfplay['fresh_move_ms']:.1f} ms, reused move "
+        f"{selfplay['reused_move_ms']:.1f} ms); side segment {branches['side_s']:.3f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)
     print(json.dumps({

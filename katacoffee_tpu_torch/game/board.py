@@ -288,6 +288,14 @@ def run_lengths(cfg: GameConfig, board: torch.Tensor) -> torch.Tensor:
     return torch.stack(outs, dim=1)
 
 
+def per_cell_max_run(cfg: GameConfig, board: torch.Tensor) -> torch.Tensor:
+    """[..., Y, X] int64: the longest same-color run through each cell over
+    the four directions (the per-cell longest-line training target), for
+    boards [..., Y, X]."""
+    flat = board.reshape((-1, cfg.y_size, cfg.x_size))
+    return run_lengths(cfg, flat).amax(1).reshape(board.shape)
+
+
 def _wins_at(cfg: GameConfig, board: torch.Tensor, spot: torch.Tensor) -> torch.Tensor:
     """[B] bool: the stone at `spot` lies in a run of at least win_len."""
     win_windows = _line_tables(cfg, board.device)[2]  # [nw, area] bool

@@ -47,6 +47,16 @@ def test_the_selfplay_slice_modules_are_checked():
         assert PORT / rel in sources, rel
 
 
+def test_the_actor_modules_are_checked():
+    """The selfplay actor's modules are among the sources checked above and
+    among the modules imported without the reference package below."""
+    sources = _port_sources()
+    for rel in ("selfplay/actor.py", "selfplay/treerecord.py", "selfplay/forking.py", "game/board.py"):
+        assert PORT / rel in sources, rel
+    imported = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in PORT.rglob("*.py")}
+    assert {"selfplay.actor", "selfplay.treerecord", "selfplay.forking"} <= imported
+
+
 def test_forbidden_match_is_exact():
     assert _forbidden("katacoffee_tpu") and _forbidden("katacoffee_tpu.search")
     assert _forbidden("jax.numpy") and not _forbidden("katacoffee_tpu_torch.search")
@@ -123,3 +133,31 @@ def test_port_commits_only_small_text_files():
         assert f.suffix != ".so", f
         assert f.stat().st_size <= 100 * 1024, f
         assert b"\0" not in f.read_bytes(), f
+
+
+def test_selfplay_entry_points_refuse_the_cpu_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from katacoffee_tpu_torch.game.board import GameConfig, init_state
+    from katacoffee_tpu_torch.search.mcts import uniform_eval_fn
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.selfplay.actor import SelfplaySettings, init_side_state, run_selfplay_segment
+    from katacoffee_tpu_torch.selfplay.forking import init_fork_pool
+
+    cfg = GameConfig()
+    calls = []
+    ev = uniform_eval_fn(cfg)
+
+    def counting_eval(states):
+        calls.append(states.board.device)
+        return ev(states)
+
+    states = init_state(cfg, 2, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_selfplay_segment(cfg, SearchParams(), SelfplaySettings(num_sims=4), counting_eval, states,
+                             torch.zeros(2, dtype=torch.int64), 1, generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_side_state(cfg, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_fork_pool(cfg, 4)
+    assert calls == []
