@@ -29,9 +29,9 @@ the run with a non-zero exit and a traceback:
      against the plain gather (identical), and both kernels against both
      plain versions (identical games counted, total variation within
      TV_MAX); then card against CPU at float32 on B=8;
-  5. the slice's main path, bench.py's measurement on the port: the
+  5. bench.py's measurement on the port: the
      selfplay actor's `run_selfplay_segment` at B=512, 600 visits, N=182,
-     b6c96 bf16, one untimed 2-move segment from empty boards, then 8 timed
+     b6c96 bf16, one untimed 2-move segment from empty boards, then 4 timed
      ones carrying states and episode ids (delivered visits/s, per-move
      walls, the actor's share), with the launch counts reset before and
      read after (one descent launch per simulation run) and the readouts
@@ -42,9 +42,23 @@ the run with a non-zero exit and a traceback:
      segment with the same injected draws, and side positions, whole-game
      forks and tree records at B=512 (configs/selfplay.cfg's probabilities)
      with run_side_segment;
-  6. profiles of a short B=512 search under both profiles (device busy
-     share, launches and host syncs per playout);
-  7. the kernel table as one JSON line, then the result line.
+  6. the selfplay command, the main path since the command was ported
+     (`phase_selfplay_command`): `command.selfplay.main` in this process
+     with configs/selfplay.cfg at B=256 and 600 visits on a temporary
+     directory whose models/ links run-s5200, depth cut to 2 segments of 2
+     moves, with the launch counts reset before and read after; each
+     kernel then held against its plain version, and timed, on copies of
+     the inputs this run gave it (every gather shape; the trees of every
+     100th descent launch of the moves' B=256 and of the side searches'
+     24 lanes, the one with the most levels of each timed); then twice
+     at 64 visits and 2 segments of 16 moves with one seed: the shards read
+     back and checked, the SGFs replayed, both runs' data equal;
+  7. profiles of a short B=512 search under both profiles and with the
+     selfplay command's symmetry-randomizing evaluator (device busy share,
+     launches and host syncs per playout), and that evaluator's cost in
+     alternated pairs;
+  8. the kernel table as one JSON line (launches, check and times from
+     phase 6, the other shapes and trees beside them), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -65,9 +79,6 @@ MODEL_DIR = "artifacts/flagship_b6c96/models/run-s5200"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 KERNEL_SHAPES = ((16, 64, 8, 24), (8, 130, 8, 100), (512, 182, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
 TIMED_SHAPES = ((512, 182, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
-# the selfplay path's full-width gather (root and readouts, N=182 slots); the
-# N=602 shapes are the default path's
-MAIN_SHAPE = (512, 182, 8, 100)
 # A kernel-vs-plain descent may pick another lane only where the plain
 # version scores the kernel's lane below its own by at most this (and not
 # equal): sums of float32 lanes in another order differ in the last bits of
@@ -178,25 +189,34 @@ def phase_kernel(dev) -> dict:
             raise AssertionError(f"gather_rows != gather_rows_plain at {shape}")
         max_err = max(max_err, (got - want).abs().max().item())
         log(f"kernel == plain at (B,N,S,A)={shape}")
-    timings = {}
-    for shape in TIMED_SHAPES:
-        table, idx = gather_inputs(shape, dev, seed=99)
-        B, N, S, A = shape
-        expanded = idx.clamp(0, N - 1).to(torch.int64)[:, :, None].expand(B, A, S).contiguous()
-        t = {
-            "ms": device_ms(lambda: gather_rows(table, idx)),
-            "plain_ms": device_ms(lambda: gather_rows_plain(table, idx)),
-            "library_ms": device_ms(lambda: torch.gather(table, 1, expanded)),
-            "bound_ms": gather_bound_ms(table, idx),
-            "eager_ms": eager_ms(lambda: gather_rows(table, idx)),
-        }
-        timings[shape] = t
-        log(
-            f"(B,N,S,A)={shape} device time per call: kernel {t['ms'] * 1e3:.2f} us, "
-            f"plain {t['plain_ms'] * 1e3:.2f} us, torch.gather {t['library_ms'] * 1e3:.2f} us, "
-            f"bound {t['bound_ms'] * 1e3:.2f} us; kernel launched eagerly {t['eager_ms'] * 1e3:.2f} us"
-        )
+    timings = {shape: time_gather(*gather_inputs(shape, dev, seed=99)) for shape in TIMED_SHAPES}
     return {"max_abs_err": max_err, "timings": timings}
+
+
+def time_gather(table, idx, label: str = "") -> dict:
+    """Device time per call of the gather kernel, its plain version and
+    torch.gather on (table, idx), the bound from these inputs, and the
+    kernel's per-call time when launched eagerly. In ms."""
+    import torch
+
+    from katacoffee_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    B, N, S = table.shape
+    A = idx.shape[1]
+    expanded = idx.clamp(0, N - 1).to(torch.int64)[:, :, None].expand(B, A, S).contiguous()
+    t = {
+        "ms": device_ms(lambda: gather_rows(table, idx)),
+        "plain_ms": device_ms(lambda: gather_rows_plain(table, idx)),
+        "library_ms": device_ms(lambda: torch.gather(table, 1, expanded)),
+        "bound_ms": gather_bound_ms(table, idx),
+        "eager_ms": eager_ms(lambda: gather_rows(table, idx)),
+    }
+    log(
+        f"{label}(B,N,S,A)={(B, N, S, A)} device time per call: kernel {t['ms'] * 1e3:.2f} us, "
+        f"plain {t['plain_ms'] * 1e3:.2f} us, torch.gather {t['library_ms'] * 1e3:.2f} us, "
+        f"bound {t['bound_ms'] * 1e3:.2f} us; kernel launched eagerly {t['eager_ms'] * 1e3:.2f} us"
+    )
+    return t
 
 
 def random_positions(cfg, batch: int, seed: int):
@@ -646,19 +666,6 @@ def phase_search(dev, cfg, positions, bench_batch=512, bench_visits=600, ab_batc
 SELFPLAY_METRIC = "selfplay_delivered_visits_per_sec_b6c96_600visits"
 
 
-def concat_trajectories(trajs):
-    """Trajectories of consecutive segments as one, moves along dim 0."""
-    import torch
-
-    from katacoffee_tpu_torch.game.board import GameState
-    from katacoffee_tpu_torch.selfplay.actor import Trajectory
-
-    return Trajectory(*(
-        GameState(*(torch.cat(f) for f in zip(*xs))) if isinstance(xs[0], tuple) else torch.cat(xs)
-        for xs in zip(*trajs)
-    ))
-
-
 def check_segment(cfg, traj, visits, label) -> None:
     """The readout checks on every move of a segment: finite policy targets
     and values, policy targets summing to 1, legal played moves, visits + 1
@@ -681,7 +688,7 @@ def check_segment(cfg, traj, visits, label) -> None:
         raise AssertionError(f"{label}: a root does not have {visits + 1} visits")
 
 
-def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=8):
+def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=4):
     """The slice's main path, bench.py's measurement: `run_selfplay_segment`
     at B=512, SelfplaySettings(num_sims=600) (policy-init openings, tree
     reuse, N=182), for_selfplay, b6c96 bf16, 2-move segments from empty
@@ -697,6 +704,7 @@ def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=8):
     from katacoffee_tpu_torch.ops.descend import descend_interior
     from katacoffee_tpu_torch.ops.gather import gather_rows
     from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.command.selfplay import concat_trajectories
     from katacoffee_tpu_torch.search.params import SearchParams
     from katacoffee_tpu_torch.selfplay.actor import SelfplaySettings, run_selfplay_segment
 
@@ -745,12 +753,14 @@ def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=8):
     try:
         gather_rows.launches = 0
         descend_interior.launches = 0
+        seg_walls = []
         t = time.monotonic()
         for _ in range(segments):
             states, episode, traj = run_selfplay_segment(cfg, sp, settings, evaluate, states, episode, moves,
                                                          device=dev, generator=generator)
             trajs.append(traj)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            seg_walls.append(time.monotonic() - t - sum(seg_walls))
         wall = time.monotonic() - t
         launches = {"gather_rows": gather_rows.launches, "descend_interior": descend_interior.launches}
     finally:
@@ -763,6 +773,7 @@ def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=8):
     resets = int(traj.done_after.sum())
     out = {
         "launches": launches, "sims": counts["sims"], "wall_s": wall, "delivered_vps": delivered,
+        "segment_walls": seg_walls, "segment_sims": moves * visits,
         "fresh_move_ms": statistics.mean(walls["fresh"]) * 1e3,
         "reused_move_ms": statistics.mean(walls["reused"]) * 1e3,
         "actor_share": 1.0 - search_s / wall, "resets": resets,
@@ -781,7 +792,8 @@ def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=8):
         advance_ms.append((time.monotonic() - t) * 1e3)
     out["advance_ms"] = statistics.median(advance_ms)
     log(f"{SELFPLAY_METRIC} {delivered:.1f} visits/s (B={batch}, {visits} visits, N={settings.nodes()}, "
-        f"{segments} timed {moves}-move segments, {wall:.3f} s) on {card_line()}")
+        f"{segments} timed {moves}-move segments, {wall:.3f} s: " + ", ".join(f"{x:.3f}" for x in seg_walls)
+        + f" s) on {card_line()}")
     log(f"  per move: fresh (first of a segment) {out['fresh_move_ms']:.1f} ms, reused {out['reused_move_ms']:.1f} ms "
         f"({out['reused_sims_per_move']:.1f} simulations); the actor's own work outside the searches "
         f"{out['actor_share']:.2%} of the wall; {resets} games ended and reset; advance_root alone "
@@ -808,6 +820,7 @@ def phase_selfplay_ab(dev, cfg, batch=64, visits=64, moves=16, max_segments=4):
     import torch
 
     import katacoffee_tpu_torch.search.mcts as mcts
+    from katacoffee_tpu_torch.command.selfplay import concat_trajectories
     from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
     from katacoffee_tpu_torch.game.board import init_state
     from katacoffee_tpu_torch.ops.gather import gather_rows_plain
@@ -1025,6 +1038,299 @@ def phase_selfplay_branches(dev, cfg, main, window, visits=200, moves=2, seed=3,
             "tree_rows": tree_rows, "side_s": side_s, "side_rows": side_rows}
 
 
+SELFPLAY_CFG = "configs/selfplay.cfg"
+
+
+def replay_sgfs(cfg, paths, dev):
+    """Replays SGF games batched with the port's rules: every move legal
+    when it is played, the game over after its last move and not before,
+    its winner the one `RE` names. Returns the number of games."""
+    import torch
+
+    from katacoffee_tpu_torch.dataio.sgf import parse_sgf_file
+    from katacoffee_tpu_torch.game.board import init_state, legal_mask_flat, step
+
+    games = [parse_sgf_file(p) for p in paths]
+    results = {"B+": 1, "W+": 2, "0": 0}
+    moves = [[d * cfg.area + y * cfg.x_size + x for x, y, d, _ in g.moves()] for g in games]
+    if any(g.board_size() != (cfg.x_size, cfg.y_size) or g.result() not in results or not m
+           for g, m in zip(games, moves)):
+        raise AssertionError("an SGF of another board, without a result, or without moves")
+    G, T = len(games), max(len(m) for m in moves)
+    lengths = torch.tensor([len(m) for m in moves], device=dev)
+    acts = torch.tensor([m + [0] * (T - len(m)) for m in moves], device=dev)
+    s = init_state(cfg, G, dev)
+    rows = torch.arange(G, device=dev)
+    for t in range(T):
+        live = t < lengths
+        if not bool((legal_mask_flat(cfg, s)[rows, acts[:, t]] | ~live).all()):
+            raise AssertionError(f"an SGF plays an illegal move at ply {t + 1}")
+        if bool((s.done & live).any()):
+            raise AssertionError(f"an SGF goes on after its game ended, at ply {t + 1}")
+        s = step(cfg, s, acts[:, t])
+    want = torch.tensor([results[g.result()] for g in games], device=dev, dtype=s.winner.dtype)
+    if not bool(s.done.all()) or not torch.equal(s.winner, want):
+        raise AssertionError("an SGF ends before its game does, or names another winner")
+    return G
+
+
+def read_daemon_rows(cfg, out, model, dev):
+    """Every shard the daemon wrote for `model`, read back through the
+    port's reader and rows_to_batch and checked; returns the rows
+    concatenated by key (numpy) and the SGF paths."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from katacoffee_tpu_torch.dataio.trainingwrite import _ROW_KEYS, iter_shards, read_npz_rows, rows_to_batch
+
+    tdata = os.path.join(out, "selfplay", model, "tdata")
+    cols = {k: [] for k in _ROW_KEYS}
+    for path in iter_shards(tdata):
+        data = read_npz_rows(path)
+        batch = rows_to_batch(data, cfg, device=dev)
+        ok = (bool((batch.weight > 0).all()) and bool(torch.isin(batch.states.board, torch.tensor(
+            [0, 1, 2], device=dev, dtype=torch.int8)).all()) and bool(((batch.states.to_move == 1)
+                                                                         | (batch.states.to_move == 2)).all())
+              and bool(torch.allclose(batch.policy_target.sum(-1), torch.ones((), device=dev), atol=1e-2)))
+        if not ok:
+            raise AssertionError(f"{path}: a row with weight 0, a board cell or player to move out of range, "
+                                 f"or a policy target that does not sum to 1")
+        for k in _ROW_KEYS:
+            cols[k].append(data[k])
+    if not cols["weight"]:
+        raise AssertionError(f"no shard in {tdata}")
+    rows = {k: np.concatenate(v) for k, v in cols.items()}
+    sgf_dir = os.path.join(out, "selfplay", model, "sgfs")
+    return rows, sorted(os.path.join(sgf_dir, n) for n in os.listdir(sgf_dir))
+
+
+def sorted_rows(rows):
+    """The rows as one byte string each, in a stable sorted order."""
+    import numpy as np
+
+    n = rows["weight"].shape[0]
+    flat = np.concatenate([np.ascontiguousarray(v).reshape(n, -1).view(np.uint8) for v in rows.values()], axis=1)
+    return sorted(flat[i].tobytes() for i in range(n))
+
+
+def check_path_gather(label, table, idx) -> tuple[dict, float]:
+    """The gather kernel against gather_rows_plain on inputs the main path
+    gave it (copied at its call): equal, then timed by `time_gather`.
+    Returns (timings, max |kernel - plain|)."""
+    import torch
+
+    from katacoffee_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+    got, want = gather_rows(table, idx), gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: gather_rows != gather_rows_plain at {tuple(table.shape)}, {tuple(idx.shape)}")
+    log(f"{label}: gather kernel == plain on the path's own table and indices")
+    return time_gather(table, idx, label + ": "), (got - want).abs().max().item()
+
+
+def check_path_descent(label, cfg, sp, tree, inputs, timed: bool) -> dict:
+    """The descent kernel against `_descend_interior_plain` on a copy of the
+    tree and inputs the main path gave it at one launch, held by
+    `compare_descent`; with `timed`, then timed by `time_descent`, its
+    bound from this copy."""
+    import torch
+
+    from katacoffee_tpu_torch.search import mcts
+
+    start_ev = tree.edge_visits.clone()
+    got = run_descent(mcts._descend_interior, cfg, sp, tree, start_ev, inputs)
+    want = run_descent(mcts._descend_interior_plain, cfg, sp, tree, start_ev, inputs)
+    flips, err = compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want)
+    depth, active = inputs[1:3]
+    leaf_depth = want[1]
+    capped = leaf_depth < mcts._max_depth(cfg, sp)
+    levels = int(torch.where(active, leaf_depth - depth + capped.long(), 0).sum())
+    B, N, A = tree.prior.shape
+    out = dict(timed_levels=levels, flips=flips, max_abs_err=err, games=int(active.sum()),
+               caught=int(want[-1].sum()), shape=[B, N, A, inputs[5].child_c.shape[-1]])
+    if timed:
+        out["ms"], out["plain_ms"] = time_descent(cfg, sp, tree, start_ev, inputs)
+        out["bound_ms"] = descent_bound_ms(cfg, tree, inputs, got)
+        log(f"{label}: {out['games']} games descending, {levels} levels: kernel {out['ms'] * 1e3:.2f} us device, "
+            f"plain {out['plain_ms'] * 1e3:.1f} us wall, bound {out['bound_ms'] * 1e3:.3f} us (bytes)")
+    return out
+
+
+def phase_selfplay_command(dev, cfg, batch=256, visits=600, rows_visits=64, rows_moves=16, snapshot_every=100):
+    """This slice's main path: `command.selfplay.main`, in this process, on
+    a temporary output directory outside the repo whose models/ links
+    run-s5200, with configs/selfplay.cfg (B=256, 600 visits, b6c96 bf16
+    with a random symmetry per evaluation, side positions and game forks at
+    the cfg's probabilities), the depth cut by overrides:
+      (a) 2 segments of 2 moves, a flush after each: both kernels' launch
+          counts reset before and read after (one descent launch per
+          simulation run, the side searches' included), delivered visits/s
+          of the segments and of the whole daemon, and the daemon's own
+          seconds outside the segments by part. Each gather's table and
+          indices are copied at the call (the last call of each shape
+          kept), and the tree and inputs of every `snapshot_every`-th
+          descent launch of each batch width (the moves' B and the side
+          searches' lanes); after the run each kernel is held against its
+          plain version on every copy, and timed on the gathers' and, for
+          each width, on the descent copy with the most levels;
+      (b) 64 visits, 2 segments of 16 moves in one flush window, twice with
+          the same seed: games end, every shard reads back through the
+          port's reader and rows_to_batch with weights > 0, policy targets
+          summing to 1 (float16), board cells in {0, 1, 2} and the player
+          to move in {1, 2}; every SGF replays legally to its game's end and
+          winner, one SGF per game ended; both runs' rows equal after a
+          stable sort, and their SGFs equal; the daemon's seconds by part."""
+    import collections
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from katacoffee_tpu_torch.command import selfplay as command
+    from katacoffee_tpu_torch.ops.descend import descend_interior
+    from katacoffee_tpu_torch.ops.gather import gather_rows
+    from katacoffee_tpu_torch.search import mcts
+
+    model = os.path.basename(MODEL_DIR)
+    root = tempfile.mkdtemp(prefix="katacoffee_selfplay_")
+    kept = (mcts._simulate_once, command.run_selfplay_segment, mcts.gather_rows, mcts._descend_interior)
+    ended = []
+    sims = [0]
+    gathers, descents, descent_calls = {}, {}, collections.Counter()
+
+    def simulate(*args, **kwargs):
+        sims[0] += 1
+        return kept[0](*args, **kwargs)
+
+    def segment(*args, **kwargs):
+        out = kept[1](*args, **kwargs)
+        ended.append(int(out[2].done_after.sum()))
+        return out
+
+    def copy_gather(table, idx):
+        gathers[tuple(table.shape) + (idx.shape[1],)] = (table.clone(), idx.clone())
+        return kept[2](table, idx)
+
+    def copy_descent(c, sp, tree, node, depth, active, path, acts, scratch):
+        B = node.shape[0]
+        descent_calls[B] += 1
+        if descent_calls[B] % snapshot_every == 0:
+            copy = mcts.Tree(*(x.map(torch.clone) if isinstance(x, tuple) else x.clone() for x in tree))
+            descents.setdefault(B, []).append((descent_calls[B], sp, copy, tuple(
+                x.clone() for x in (node, depth, active, path, acts)) + (mcts.LevelScratch(*(
+                    x.clone() for x in scratch)),)))
+        return kept[3](c, sp, tree, node, depth, active, path, acts, scratch)
+
+    def run(name, overrides):
+        out = os.path.join(root, name)
+        os.makedirs(os.path.join(out, "models"))
+        os.symlink(os.path.abspath(MODEL_DIR), os.path.join(out, "models", model))
+        walls = {}
+        ended.clear()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        command.main(["-output-dir", out, "-config", SELFPLAY_CFG, "-override-config", overrides], device=dev,
+                     walls=walls)
+        torch.cuda.synchronize()
+        return out, walls, time.monotonic() - t
+
+    def parts_line(walls):
+        return ", ".join(f"{k} {sum(v):.3f}" for k, v in walls.items() if k != "segment")
+
+    mcts._simulate_once, command.run_selfplay_segment = simulate, segment
+    try:
+        moves, segments = 2, 2
+        sims[0] = 0
+        mcts.gather_rows, mcts._descend_interior = copy_gather, copy_descent
+        gather_rows.launches = 0
+        descend_interior.launches = 0
+        out_a, walls, wall = run("a", f"numParallelGames={batch},maxVisits={visits},movesPerSegment={moves},"
+                                      f"maxSegments={segments},segmentsPerFlush=1")
+        launches = {"gather_rows": gather_rows.launches, "descend_interior": descend_interior.launches}
+        mcts.gather_rows, mcts._descend_interior = kept[2:]
+        run_sims = sims[0]
+        rows_a, _ = read_daemon_rows(cfg, out_a, model, dev)
+        seg_s = sum(walls["segment"])
+        delivered = batch * visits * moves * segments / seg_s
+        side_rows = int((rows_a["aux_weight"] == 0).sum())
+        log(f"selfplay command (a), B={batch} {visits} visits, {segments} segments of {moves} moves, a flush each: "
+            f"delivered {delivered:.1f} visits/s over the segments ({batch * visits * moves * segments / wall:.1f} over "
+            f"the daemon's {wall:.3f} s); segment walls " + ", ".join(f"{x:.3f}" for x in walls["segment"])
+            + f" s; outside the segments {wall - seg_s:.3f} s ({parts_line(walls)}); {rows_a['weight'].shape[0]} "
+            f"rows, {side_rows} of them side rows; {sum(ended)} games ended")
+        log(f"  launches in the daemon run: descend_interior {launches['descend_interior']} for {run_sims} "
+            f"simulations run (segments and side searches; by batch width {dict(descent_calls)}); gather_rows "
+            f"{launches['gather_rows']} (shapes {sorted(gathers)})")
+        if launches["descend_interior"] != run_sims:
+            raise AssertionError(f"descend_interior launched {launches['descend_interior']} times in the daemon, not "
+                                 f"once per simulation run ({run_sims})")
+        if launches["gather_rows"] == 0:
+            raise AssertionError("gather_rows was not launched by the selfplay command")
+        if side_rows == 0:
+            raise AssertionError("the daemon wrote no side-position rows")
+        if set(descents) != set(descent_calls) or batch not in descents:
+            raise AssertionError(f"descent launches by batch width {dict(descent_calls)}: a width with fewer than "
+                                 f"{snapshot_every} launches was not copied, so its kernel is not checked")
+
+        gather_timings, gather_err = {}, 0.0
+        for shape, (table, idx) in sorted(gathers.items(), reverse=True):
+            gather_timings[shape], err = check_path_gather(f"selfplay command (a) {shape}", table, idx)
+            gather_err = max(gather_err, err)
+        gathers.clear()
+        descent_timings = {}
+        for B, copies in sorted(descents.items(), reverse=True):
+            checked = [check_path_descent(f"selfplay command (a) B={B} launch {n}", cfg, sp, tree, inputs, False)
+                       for n, sp, tree, inputs in copies]
+            log(f"selfplay command (a) B={B}: descent kernel == plain on the path's own tree at launches "
+                f"{[c[0] for c in copies]}: games descending {[c['games'] for c in checked]}, levels "
+                f"{[c['timed_levels'] for c in checked]}, catch-ups {[c['caught'] for c in checked]}, near-tie act "
+                f"flips {sum(c['flips'] for c in checked)}")
+            best = max(range(len(copies)), key=lambda i: checked[i]["timed_levels"])
+            if checked[best]["timed_levels"] == 0:
+                raise AssertionError(f"B={B}: no copied descent went below the root, so the kernel is not checked")
+            n, sp, tree, inputs = copies[best]
+            descent_timings[B] = check_path_descent(f"selfplay command (a) B={B} launch {n}", cfg, sp, tree, inputs,
+                                                    True)
+            descent_timings[B].update(
+                launch=n, flips=sum(c["flips"] for c in checked), games=sum(c["games"] for c in checked),
+                levels_compared=sum(c["timed_levels"] for c in checked),
+                max_abs_err=max(c["max_abs_err"] for c in checked))
+        descents.clear()
+
+        runs, parts_b = [], []
+        for name in ("b1", "b2"):
+            out, bw, bwall = run(name, f"numParallelGames={batch},maxVisits={rows_visits},"
+                                       f"movesPerSegment={rows_moves},segmentsPerFlush=2,maxSegments=2")
+            rows, sgfs = read_daemon_rows(cfg, out, model, dev)
+            games = replay_sgfs(cfg, sgfs, dev)
+            if games == 0 or games != sum(ended):
+                raise AssertionError(f"{games} SGFs for {sum(ended)} games ended")
+            runs.append((rows, [open(p).read() for p in sgfs]))
+            own = sum(sum(v) for k, v in bw.items() if k not in ("segment", "side"))
+            parts_b.append({"wall_s": bwall, "own_s": own, **{k: sum(v) for k, v in bw.items()}})
+            log(f"selfplay command (b) run {name}, B={batch} {rows_visits} visits, 2 segments of {rows_moves} moves: "
+                f"{bwall:.3f} s, {rows['weight'].shape[0]} rows ({int((rows['aux_weight'] == 0).sum())} side rows), "
+                f"{games} games ended, each an SGF that replays legally to its winner; segments "
+                f"{sum(bw['segment']):.3f} s, {parts_line(bw)}; the daemon's own work (poll, finalize, write, forks, "
+                f"sgfs) {own:.3f} s, {own / bwall:.2%} of the wall")
+        same = sorted_rows(runs[0][0]) == sorted_rows(runs[1][0]) and runs[0][1] == runs[1][1]
+        if not same:
+            raise AssertionError("two daemon runs with the same seed wrote different rows or SGFs")
+        log(f"  both runs wrote the same {runs[0][0]['weight'].shape[0]} rows (after a stable sort) and the same "
+            f"{len(runs[0][1])} SGFs")
+    finally:
+        mcts._simulate_once, command.run_selfplay_segment, mcts.gather_rows, mcts._descend_interior = kept
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "sims": run_sims, "delivered_vps": delivered, "outside_s": wall - seg_s,
+            "segment_walls": walls["segment"], "segment_sims": moves * visits, "gather": gather_timings, "gather_max_abs_err": gather_err,
+            "gather_shape": next(s for s in gather_timings if s[0] == batch),
+            "descent": descent_timings, "rows_runs": parts_b}
+
+
 PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_lookup", "_bias_keys", "_bias_avg",
             "_root_eval", "_tree_from_root_eval", "advance_root")
 
@@ -1094,11 +1400,14 @@ def phase_profile(dev, label, search, sims=20):
             "by_phase": {k: v / sims for k, v in by_phase.items()}}
 
 
-def profile_searches(dev, cfg, reused_tree, batch=512, sims=20):
+def profile_searches(dev, cfg, reused_tree, batch=512, sims=20, pairs=5):
     """Profiles of `sims` playouts at B=512 b6c96: a fresh search from the
-    empty board under the default and the selfplay profile, and the
-    continuation of the main path's reused tree (its second move) by
-    `sims` playouts under the selfplay profile."""
+    empty board under the default and the selfplay profile, the selfplay
+    one again with the selfplay command's evaluator (a random symmetry per
+    evaluation), and the continuation of the main path's reused tree (its
+    second move) by `sims` playouts under the selfplay profile. Then the
+    evaluator's cost alone: `pairs` alternated pairs of the fresh selfplay
+    search with the plain and the randomizing evaluator, host clock."""
     import torch
 
     from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
@@ -1106,16 +1415,22 @@ def profile_searches(dev, cfg, reused_tree, batch=512, sims=20):
     from katacoffee_tpu_torch.search import mcts
     from katacoffee_tpu_torch.search.params import SearchParams
 
-    evaluate = mcts.make_nn_eval_fn(cfg, load_exported_model(MODEL_DIR, dev)[0])
+    net = load_exported_model(MODEL_DIR, dev)[0]
+    evaluate = mcts.make_nn_eval_fn(cfg, net)
+    randomizing = mcts.make_nn_eval_fn(cfg, net, symmetry_randomize=True,
+                                       generator=torch.Generator(device=dev).manual_seed(1))
     roots = init_state(cfg, batch, dev)
     out = {}
-    for label, sp in (("default", SearchParams()), ("selfplay", SearchParams.for_selfplay())):
-        def fresh(wrap=lambda name, fn: fn, sp=sp):
-            mcts.run_search(cfg, sp, wrap("net", evaluate), roots, sims, device=dev,
-                            generator=torch.Generator(device=dev).manual_seed(0))
-            torch.cuda.synchronize()
 
-        out[label] = phase_profile(dev, f"{label} B={batch} fresh", fresh, sims)
+    def fresh_search(sp, ev, wrap=lambda name, fn: fn):
+        mcts.run_search(cfg, sp, wrap("net", ev), roots, sims, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+
+    for label, sp, ev in (("default", SearchParams(), evaluate), ("selfplay", SearchParams.for_selfplay(), evaluate),
+                          ("selfplay randomized eval", SearchParams.for_selfplay(), randomizing)):
+        out[label] = phase_profile(dev, f"{label} B={batch} fresh",
+                                   lambda wrap=lambda name, fn: fn, sp=sp, ev=ev: fresh_search(sp, ev, wrap), sims)
     target = reused_tree.stats[:, 0, mcts.S_VISITS] + sims
 
     def reused(wrap=lambda name, fn: fn):
@@ -1124,6 +1439,19 @@ def profile_searches(dev, cfg, reused_tree, batch=512, sims=20):
         torch.cuda.synchronize()
 
     out["selfplay reused"] = phase_profile(dev, f"selfplay B={batch} reused tree", reused, sims)
+
+    walls = {"plain": [], "randomized": []}
+    for i in range(2 * pairs):
+        name = ("plain", "randomized", "randomized", "plain")[i % 4]
+        t = time.monotonic()
+        fresh_search(SearchParams.for_selfplay(), evaluate if name == "plain" else randomizing)
+        walls[name].append(time.monotonic() - t)
+    plain, rand = statistics.median(walls["plain"]), statistics.median(walls["randomized"])
+    log(f"symmetry-randomized evaluator, {pairs} alternated pairs of a fresh B={batch} {sims}-playout selfplay "
+        f"search: median {plain * 1e3:.1f} ms plain, {rand * 1e3:.1f} ms randomized ({rand / plain - 1:+.2%}); "
+        f"plain " + ", ".join(f"{x * 1e3:.1f}" for x in walls["plain"]) + " ms; randomized "
+        + ", ".join(f"{x * 1e3:.1f}" for x in walls["randomized"]) + " ms")
+    out["randomization_ab"] = {"plain_ms": plain * 1e3, "randomized_ms": rand * 1e3}
     return out
 
 
@@ -1165,49 +1493,59 @@ def main() -> int:
     log("phase 4: search, default profile")
     search = phase_search(dev, cfg, positions)
 
-    log("phase 5: the selfplay actor's segment (the slice's main path), then the rest of the actor")
+    log("phase 5: the selfplay actor's segment (bench.py's measurement), then the rest of the actor")
     selfplay = phase_selfplay(dev, cfg)
     finishing = phase_selfplay_ab(dev, cfg)
     card_cpu = phase_selfplay_card_vs_cpu(dev, cfg)
     branches = phase_selfplay_branches(dev, cfg, selfplay, finishing.pop("traj"))
 
-    log("phase 6: profiles")
+    log("phase 6: the selfplay command (the slice's main path)")
+    command = phase_selfplay_command(dev, cfg)
+
+    log("phase 7: profiles")
     profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
+    ab = profiles.pop("randomization_ab")
     log("per playout: cudaLaunchKernel " + ", ".join(
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
-    t = kern["timings"][MAIN_SHAPE]
+    # the kernels line reports the main path (phase 6 (a)): its launches,
+    # and each kernel's check and times on the inputs that path gave it
+    shape = command["gather_shape"]
+    t = command["gather"][shape]
     gather_entry = {
         "name": "gather_rows",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/gather_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
-        "launches": selfplay["launches"]["gather_rows"],
-        "max_abs_err": kern["max_abs_err"],
-        "max_abs_diff_vs_plain": kern["max_abs_err"],
+        "launches": command["launches"]["gather_rows"],
+        "launches_segment_path": selfplay["launches"]["gather_rows"],
+        "max_abs_err": max(kern["max_abs_err"], command["gather_max_abs_err"]),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": "bytes",
         "library_ms": t["library_ms"],
         "eager_ms": t["eager_ms"],
-        "shape": list(MAIN_SHAPE),
+        "shape": list(shape),
         "launches_default_path": search["launches"]["gather_rows"],
         "launches_per_search_default_path": search["per_search"]["gather_rows"],
         "other_shapes": {
-            str(list(s)): v for s, v in kern["timings"].items() if s != MAIN_SHAPE
+            **{f"selfplay command {list(s)}": v for s, v in command["gather"].items() if s != shape},
+            **{f"random inputs {list(s)}": v for s, v in kern["timings"].items()},
         },
     }
-    timed = desc["timed"]["selfplay"]
+    timed = command["descent"][shape[0]]
     descend_entry = {
         "name": "descend_interior",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/descend_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
         "also_replaces": "katacoffee_tpu/search/mcts.py:1267",
-        "launches": selfplay["launches"]["descend_interior"],
-        "max_abs_err": desc["max_abs_err"],
+        "launches": command["launches"]["descend_interior"],
+        "simulations_run_selfplay_command": command["sims"],
+        "launches_segment_path": selfplay["launches"]["descend_interior"],
+        "max_abs_err": max(desc["max_abs_err"], *(v["max_abs_err"] for v in command["descent"].values())),
         "ms": timed["ms"],
         "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"],
@@ -1215,12 +1553,15 @@ def main() -> int:
         "library_ms": None,
         "shape": timed["shape"],
         "timed_levels": timed["timed_levels"],
-        "default_profile": desc["timed"]["default"],
-        "simulations_run": selfplay["sims"],
+        "other_trees": {
+            **{f"selfplay command B={b}": v for b, v in command["descent"].items() if b != shape[0]},
+            **{f"grown {k} tree B=512": v for k, v in desc["timed"].items()},
+        },
+        "simulations_run_segment_path": selfplay["sims"],
         "launches_default_path": search["launches"]["descend_interior"],
-        "near_tie_flips": desc["flips"],
-        "games_compared": desc["games"],
-        "levels_compared": desc["levels"],
+        "near_tie_flips": desc["flips"] + sum(v["flips"] for v in command["descent"].values()),
+        "games_compared": desc["games"] + sum(v["games"] for v in command["descent"].values()),
+        "levels_compared": desc["levels"] + sum(v["levels_compared"] for v in command["descent"].values()),
         "ab_identical_games": search["ab_identical"],
         "ab_games": search["ab_games"],
         "ab_max_tv": search["ab_tv"],
@@ -1228,9 +1569,18 @@ def main() -> int:
         "selfplay_finishing_games": finishing["games"],
         "selfplay_card_vs_cpu_parted_games": card_cpu["parted"],
     }
-    log(f"phase 7: done; default B=512 600-visit search {search['vps']:.1f} visits/s; {SELFPLAY_METRIC} "
+    # plies 3-4 in both: phase 5's first timed segment (B=512, plain
+    # evaluator) and the command's second segment (B=256, randomizing)
+    per_sim = [selfplay["segment_walls"][0] / selfplay["segment_sims"] * 1e3,
+               command["segment_walls"][1] / command["segment_sims"] * 1e3]
+    own = [r["own_s"] / r["wall_s"] for r in command["rows_runs"]]
+    log(f"phase 8: done; default B=512 600-visit search {search['vps']:.1f} visits/s; {SELFPLAY_METRIC} "
         f"{selfplay['delivered_vps']:.1f} (fresh move {selfplay['fresh_move_ms']:.1f} ms, reused move "
-        f"{selfplay['reused_move_ms']:.1f} ms); side segment {branches['side_s']:.3f} s")
+        f"{selfplay['reused_move_ms']:.1f} ms); side segment {branches['side_s']:.3f} s; selfplay command "
+        f"{command['delivered_vps']:.1f} visits/s over its segments, {command['outside_s']:.3f} s outside them; "
+        f"plies 3-4, ms a simulation: B=512 segment {per_sim[0]:.2f}, the command's B=256 segment {per_sim[1]:.2f}; "
+        f"the daemon's own work in the rows runs " + ", ".join(f"{x:.2%}" for x in own) + " of the wall; "
+        f"randomized evaluator {ab['randomized_ms'] / ab['plain_ms'] - 1:+.2%} on a fresh search")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)
     print(json.dumps({

@@ -95,3 +95,31 @@ def load_exported_model(
         flat = {k: z[k] for k in z.files}
     model.load_state_dict(params_from_jax(flat), strict=True)
     return model.to(dev).eval(), cfg, meta
+
+
+def is_complete_model_dir(d: str) -> bool:
+    return os.path.isfile(os.path.join(d, "model.npz")) and os.path.isfile(os.path.join(d, "model.json"))
+
+
+def find_latest_model(models_dir: str) -> str | None:
+    """The newest complete model directory under `models_dir` by its
+    `export_time` (the mtime of model.npz where that is missing or 0), or
+    None, the "random" sentinel (loadmodel.cpp semantics). The port of
+    `katacoffee_tpu/dataio/checkpoints.py` `find_latest_model`."""
+    if not os.path.isdir(models_dir):
+        return None
+    best, best_t = None, -1.0
+    for name in os.listdir(models_dir):
+        d = os.path.join(models_dir, name)
+        if name.startswith(".") or not os.path.isdir(d) or not is_complete_model_dir(d):
+            continue
+        try:
+            with open(os.path.join(d, "model.json")) as f:
+                t = float(json.load(f).get("export_time", 0.0))
+        except (json.JSONDecodeError, OSError):
+            continue
+        if t <= 0.0:
+            t = os.path.getmtime(os.path.join(d, "model.npz"))
+        if t > best_t:
+            best, best_t = d, t
+    return best

@@ -195,16 +195,41 @@ def apply_action(cfg: GameConfig, sym, action: torch.Tensor) -> torch.Tensor:
     return apply_direction(sym, direction) * cfg.area + apply_spot(cfg, sym, spot)
 
 
-def apply_features(sym: int, spatial: torch.Tensor) -> torch.Tensor:
-    """Transform the 18-channel feature tensor [..., 18, H, W]: every plane,
-    and the direction channels of the last-move one-hot (3-6) and the
-    legal-move (11-14) groups."""
-    spatial = apply_plane(sym, spatial)
+def _feature_channels(sym: int, num_channels: int) -> list:
+    """Source channel of each output channel: the direction channels of the
+    last-move one-hot (3-6) and the legal-move (11-14) groups permuted."""
     inv = _inverse_dir_perm(sym)
-    chans = list(range(spatial.shape[-3]))
+    chans = list(range(num_channels))
     for base in (3, 11):
         chans[base: base + NUM_DIRECTIONS] = [base + inv[d] for d in range(NUM_DIRECTIONS)]
-    return spatial[..., chans, :, :]
+    return chans
+
+
+@functools.lru_cache(maxsize=None)
+def _feature_tables(x_size: int, y_size: int, num_channels: int, device: torch.device):
+    """(source spot [nsym, area], source channel [nsym, C]) int64 tables."""
+    nsym = num_symmetries(GameConfig(x_size, y_size))
+    spots = _spot_table_np(x_size, y_size)[[invert(s) for s in range(nsym)]]
+    chans = np.asarray([_feature_channels(s, num_channels) for s in range(nsym)], np.int64)
+    return tuple(torch.from_numpy(np.asarray(t, np.int64)).to(device) for t in (spots, chans))
+
+
+def apply_features(sym, spatial: torch.Tensor) -> torch.Tensor:
+    """Transform the 18-channel feature tensor [..., 18, H, W]: every plane,
+    and the direction channels of the last-move one-hot (3-6) and the
+    legal-move (11-14) groups. `sym` is an int, or a [B] tensor, one
+    symmetry per row of a [B, 18, H, W] tensor: then one gather on the
+    device, with no host sync."""
+    if isinstance(sym, torch.Tensor):
+        b, c, h, w = spatial.shape
+        spots, chans = _feature_tables(w, h, c, spatial.device)
+        sym = sym.to(torch.int64)
+        # output (c, j) reads input (chans[c], spots[j]); an out-of-range
+        # symmetry (a transpose of a rectangle) fails the index
+        src = chans[sym][:, :, None] * (h * w) + spots[sym][:, None, :]  # [B, C, area]
+        return torch.gather(spatial.reshape(b, c * h * w), 1, src.reshape(b, -1)).reshape(b, c, h, w)
+    spatial = apply_plane(sym, spatial)
+    return spatial[..., _feature_channels(sym, spatial.shape[-3]), :, :]
 
 
 def _stone_hash(cfg: GameConfig, board: torch.Tensor) -> torch.Tensor:

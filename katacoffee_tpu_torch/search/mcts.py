@@ -15,6 +15,8 @@ What the port implements (file:line cites are the JAX package's):
     factor, root forced playouts and the rootHintLoc forcing
     (`_select_action`, :1030), and its compact-lane form for interior nodes
     (`_selection_compact`, from `_select_action_compact`, :712);
+  * the evaluator (`make_nn_eval_fn`, :359), with a random symmetry per
+    evaluated row where `symmetry_randomize` is set;
   * the root prior (`_make_root_prior`, :938): the early-game policy
     temperature, Dirichlet noise and the hint's 2 % shift; the root
     evaluation averaged over sampled symmetries (`_root_eval`, :442);
@@ -29,7 +31,8 @@ What the port implements (file:line cites are the JAX package's):
     :3057).
 
 Randomness: a search draws only at its root (the sampled symmetries and the
-Dirichlet noise; `select_moves` draws its Gumbel noise). Every draw comes
+Dirichlet noise; `select_moves` draws its Gumbel noise) and in a
+symmetry-randomizing evaluator. Every draw comes
 from the `torch.Generator` the caller passes, on the search's device, or is
 passed in as a tensor (`RootDraws`, `gumbel`), as the tests do with the JAX
 package's draws. What the port does not implement raises NotImplementedError
@@ -189,17 +192,40 @@ def uniform_eval_fn(cfg: GameConfig) -> EvalFn:
     return fn
 
 
-def make_nn_eval_fn(cfg: GameConfig, model, symmetry_randomize: bool = False) -> EvalFn:
+def make_nn_eval_fn(
+    cfg: GameConfig,
+    model,
+    symmetry_randomize: bool = False,
+    generator: torch.Generator | None = None,
+    draw_syms: Callable[[int], torch.Tensor] | None = None,
+) -> EvalFn:
     """Wrap a CoffeeNet into an EvalFn: features, forward, softmax of the
     policy over legal moves, utility = P(win) - P(loss). The states must lie
-    on the model's device."""
-    if symmetry_randomize:
-        raise NotImplementedError("katacoffee_tpu_torch search: symmetry_randomize is not ported yet")
+    on the model's device.
+
+    `symmetry_randomize` evaluates each row under a random dihedral symmetry
+    and inverts it on the policy logits (the reference NNEvaluator's
+    nnRandomize; JAX `make_nn_eval_fn`, mcts.py:359-401): the symmetries
+    [B], in [0, num_symmetries(cfg)), come from `generator` (on the model's
+    device) or from `draw_syms(B)`, as the tests pass the JAX package's.
+    They stay on the device: no host sync."""
+    nsym = S.num_symmetries(cfg)
+    if symmetry_randomize and draw_syms is None:
+        generator = _need_generator(generator, "symmetry_randomize")
 
     @torch.no_grad()
     def fn(states: GameState) -> EvalResult:
         spatial, glob = extract_features(cfg, states)
+        if symmetry_randomize:
+            B = spatial.shape[0]
+            syms = (draw_syms(B) if draw_syms is not None else
+                    torch.randint(0, nsym, (B,), generator=generator, device=spatial.device)).to(spatial.device)
+            spatial = S.apply_features(syms, spatial)
         out = model(spatial, glob)
+        if symmetry_randomize:
+            inv = S.invert(syms)
+            for k in ("policy_logits", "optimistic_policy_logits"):
+                out[k] = S.apply_policy(cfg, inv, out[k])
         legal = legal_mask_flat(cfg, states)
         probs = _softmax(out["value_logits"])
         utility = probs[:, 0] - probs[:, 1]

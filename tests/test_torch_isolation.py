@@ -161,3 +161,70 @@ def test_selfplay_entry_points_refuse_the_cpu_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         init_fork_pool(cfg, 4)
     assert calls == []
+
+
+SELFPLAY_COMMAND_MODULES = ("utils/config.py", "utils/logger.py", "dataio/sgf.py", "dataio/trainingwrite.py",
+                            "dataio/shuffle.py", "dataio/checkpoints.py", "selfplay/startposes.py",
+                            "command/selfplay.py", "cli.py", "__main__.py")
+
+
+def test_the_selfplay_command_modules_are_checked():
+    """The selfplay command's modules are among the sources checked above
+    and among the modules imported without the reference package."""
+    sources = _port_sources()
+    imported = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in PORT.rglob("*.py")}
+    for rel in SELFPLAY_COMMAND_MODULES:
+        assert PORT / rel in sources, rel
+        assert ".".join(Path(rel).with_suffix("").parts) in imported, rel
+
+
+def test_selfplay_command_refuses_the_cpu_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from katacoffee_tpu_torch.command import selfplay
+    from katacoffee_tpu_torch.dataio.trainingwrite import rows_to_batch
+    from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.selfplay.startposes import load_startposes
+
+    spc = selfplay.SelfplayConfig(batch_size=2, num_sims=4, moves_per_segment=1, max_segments=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        selfplay.run_selfplay_daemon(str(tmp_path), GameConfig(), SearchParams.for_selfplay(), spc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        selfplay.main(["-output-dir", str(tmp_path / "out"), "-override-config", "maxSegments=1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_startposes(GameConfig(), str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rows_to_batch({}, GameConfig())
+    assert not (tmp_path / "out").exists() and not (tmp_path / "selfplay").exists()
+    # with device="cpu" the same daemon runs
+    assert selfplay.run_selfplay_daemon(str(tmp_path), GameConfig(), SearchParams.for_selfplay(), spc,
+                                        device="cpu") == 0
+
+
+def test_selfplay_command_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
+    """Several GPUs (use_mesh) and multi-process launches name the roadmap
+    item that ports them."""
+    from katacoffee_tpu_torch.command import selfplay
+    from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        selfplay.main(["-output-dir", str(tmp_path)], device="cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    spc = selfplay.SelfplayConfig(batch_size=8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        selfplay.run_selfplay_daemon(str(tmp_path), GameConfig(), SearchParams.for_selfplay(), spc, device="cuda")
+
+
+def test_cli_runs_selfplay_only(capsys):
+    from katacoffee_tpu_torch import cli
+
+    assert cli.main([]) == 0 and "selfplay" in capsys.readouterr().out
+    for cmd in ("train", "gtp", "shuffle"):
+        assert cli.main([cmd]) == 2
+        assert f"{cmd} is not ported" in capsys.readouterr().err
+    assert cli.main(["nonsense"]) == 2

@@ -276,8 +276,73 @@ def test_unported_arguments_raise(arg):
 
 
 def test_eval_symmetries_raise():
-    with pytest.raises(NotImplementedError, match="symmetry_randomize"):
+    """A symmetry-randomizing evaluator draws: without a generator or
+    injected symmetries it raises, as every drawing call of the port does."""
+    with pytest.raises(ValueError, match="Generator"):
         TM.make_nn_eval_fn(TCFG, None, symmetry_randomize=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _tinynets():
+    model, params, _, _ = jax_load(TINYNET)
+    return model, params, load_exported_model(TINYNET, device="cpu", dtype=torch.float32)[0]
+
+
+@pytest.mark.parametrize("board,keys", [("5x5", (0, 1, 2)), ("6x4", (3, 4))])
+def test_randomized_eval_matches_jax_with_its_symmetries(board, keys):
+    """The symmetry-randomizing evaluator (tinynet, float32) equal to JAX's
+    on random positions, the port handed the symmetries JAX draws,
+    `jax.random.randint(rng, (B,), 0, nsym)`, with every symmetry of the
+    board among them: policy, utility, draw and shortterm error within
+    1e-5."""
+    from test_torch_symmetry import BOARDS, _positions
+
+    batch = 64
+    tcfg, jcfg, ts, js = _positions(board, batch=batch, seed=len(keys))
+    model, params, tnet = _tinynets()
+    jnet = JaxNet(dataclasses.replace(model.spec, dtype=jnp.float32), win_len=BOARDS[board][2])
+    jev = jax.jit(JM.make_nn_eval_fn(jcfg, jnet, params, symmetry_randomize=True))
+    nsym = 8 if board == "5x5" else 4
+    seen = set()
+    for k in keys:
+        rng = jax.random.PRNGKey(k)
+        syms = torch.from_numpy(np.asarray(jax.random.randint(rng, (batch,), 0, nsym)).astype(np.int64))
+        seen |= set(syms.tolist())
+        want = jev(js, rng)
+        got = TM.make_nn_eval_fn(tcfg, tnet, symmetry_randomize=True, draw_syms=lambda n, s=syms: s[:n])(ts)
+        for name in ("policy", "utility", "draw", "shortterm_error"):
+            np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)), atol=1e-5,
+                                       rtol=0, err_msg=(k, name))
+    assert seen == set(range(nsym))
+
+
+def test_randomized_eval_with_symmetry_zero_is_the_plain_eval_and_draws_cover_every_symmetry(monkeypatch):
+    from test_torch_symmetry import _positions
+
+    tcfg, _, ts, _ = _positions("5x5", batch=32, seed=5)
+    tnet = _tinynets()[2]
+    plain = TM.make_nn_eval_fn(tcfg, tnet)(ts)
+    zero = TM.make_nn_eval_fn(tcfg, tnet, symmetry_randomize=True,
+                              draw_syms=lambda n: torch.zeros(n, dtype=torch.int64))(ts)
+    for a, b in zip(plain, zero):
+        assert torch.equal(a, b)
+
+    drawn = []
+    apply_features = TM.S.apply_features
+
+    def recording(sym, spatial):
+        drawn.append(sym.clone())
+        return apply_features(sym, spatial)
+
+    monkeypatch.setattr(TM.S, "apply_features", recording)
+    n = 8192
+    big = TB.GameState(*(x.repeat((n // 32,) + (1,) * (x.dim() - 1)) for x in ts))
+    ev = TM.make_nn_eval_fn(tcfg, tnet, symmetry_randomize=True, generator=torch.Generator().manual_seed(11))
+    ev(big)
+    counts = torch.bincount(drawn[0], minlength=8).double()
+    chi2 = float(((counts - n / 8) ** 2 / (n / 8)).sum())
+    assert drawn[0].shape == (n,) and counts.min() > 0
+    assert chi2 < 24.32, (chi2, counts)  # the 0.999 quantile of chi-square with 7 degrees of freedom
 
 
 def test_random_settings_without_a_generator_raise():
