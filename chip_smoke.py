@@ -42,23 +42,32 @@ the run with a non-zero exit and a traceback:
      segment with the same injected draws, and side positions, whole-game
      forks and tree records at B=512 (configs/selfplay.cfg's probabilities)
      with run_side_segment;
-  6. the selfplay command, the main path since the command was ported
-     (`phase_selfplay_command`): `command.selfplay.main` in this process
-     with configs/selfplay.cfg at B=256 and 600 visits on a temporary
-     directory whose models/ links run-s5200, depth cut to 2 segments of 2
-     moves, with the launch counts reset before and read after; each
-     kernel then held against its plain version, and timed, on copies of
-     the inputs this run gave it (every gather shape; the trees of every
-     100th descent launch of the moves' B=256 and of the side searches'
-     24 lanes, the one with the most levels of each timed); then twice
-     at 64 visits and 2 segments of 16 moves with one seed: the shards read
-     back and checked, the SGFs replayed, both runs' data equal;
-  7. profiles of a short B=512 search under both profiles and with the
+  6. the selfplay command (`phase_selfplay_command`): `command.selfplay.main`
+     in this process with configs/selfplay.cfg at B=256 and 600 visits on a
+     temporary directory whose models/ links run-s5200, depth cut to 2
+     segments of 2 moves, with the launch counts reset before and read
+     after; each kernel then held against its plain version, and timed, on
+     copies of the inputs this run gave it (every gather shape; the trees
+     of every 100th descent launch of the moves' B=256 and of the side
+     searches' 24 lanes, the one with the most levels of each timed); then
+     twice at 64 visits and 2 segments of 16 moves with one seed: the shards
+     read back and checked, the SGFs replayed, both runs' data equal;
+  7. the trainer, the main path since the trainer was ported
+     (`phase_trainer`): the port's `shuffle` over phase 6's shards, then
+     `command.train.main` with configs/train.cfg (b6c96, B=256, bf16)
+     resuming the flagship checkpoint (the JAX trainer's step 5200) for 80
+     steps: metrics finite, the checkpoint's step, count and train_step
+     advanced, the export loaded and picked by find_latest_model; times a
+     step, samples/s, the parts of a step, peak memory and a profile; one
+     float32 step on the card against the CPU. The training path launches
+     neither kernel (the JAX trainer reaches no Pallas kernel);
+  8. profiles of a short B=512 search under both profiles and with the
      selfplay command's symmetry-randomizing evaluator (device busy share,
      launches and host syncs per playout), and that evaluator's cost in
      alternated pairs;
-  8. the kernel table as one JSON line (launches, check and times from
-     phase 6, the other shapes and trees beside them), then the result line.
+  9. the trainer's numbers as one JSON line, the kernel table as one JSON
+     line (launches, check and times from phase 6, the other shapes and
+     trees beside them), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -68,15 +77,18 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.monotonic()
 MODEL_DIR = "artifacts/flagship_b6c96/models/run-s5200"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12  # H100 SXM data sheet, dense
 KERNEL_SHAPES = ((16, 64, 8, 24), (8, 130, 8, 100), (512, 182, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
 TIMED_SHAPES = ((512, 182, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
 # A kernel-vs-plain descent may pick another lane only where the plain
@@ -1159,9 +1171,10 @@ def check_path_descent(label, cfg, sp, tree, inputs, timed: bool) -> dict:
     return out
 
 
-def phase_selfplay_command(dev, cfg, batch=256, visits=600, rows_visits=64, rows_moves=16, snapshot_every=100):
-    """This slice's main path: `command.selfplay.main`, in this process, on
-    a temporary output directory outside the repo whose models/ links
+def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=64, rows_moves=16, snapshot_every=100):
+    """The selfplay command: `command.selfplay.main`, in this process, on
+    output directories under `root` (a temporary directory outside the repo
+    that the caller removes) whose models/ links
     run-s5200, with configs/selfplay.cfg (B=256, 600 visits, b6c96 bf16
     with a random symmetry per evaluation, side positions and game forks at
     the cfg's probabilities), the depth cut by overrides:
@@ -1182,11 +1195,10 @@ def phase_selfplay_command(dev, cfg, batch=256, visits=600, rows_visits=64, rows
           summing to 1 (float16), board cells in {0, 1, 2} and the player
           to move in {1, 2}; every SGF replays legally to its game's end and
           winner, one SGF per game ended; both runs' rows equal after a
-          stable sort, and their SGFs equal; the daemon's seconds by part."""
+          stable sort, and their SGFs equal; the daemon's seconds by part.
+    The first (b) run's shards are left for the trainer phase (`rows_dir`)."""
     import collections
     import os
-    import shutil
-    import tempfile
 
     import torch
 
@@ -1196,7 +1208,6 @@ def phase_selfplay_command(dev, cfg, batch=256, visits=600, rows_visits=64, rows
     from katacoffee_tpu_torch.search import mcts
 
     model = os.path.basename(MODEL_DIR)
-    root = tempfile.mkdtemp(prefix="katacoffee_selfplay_")
     kept = (mcts._simulate_once, command.run_selfplay_segment, mcts.gather_rows, mcts._descend_interior)
     ended = []
     sims = [0]
@@ -1324,11 +1335,262 @@ def phase_selfplay_command(dev, cfg, batch=256, visits=600, rows_visits=64, rows
             f"{len(runs[0][1])} SGFs")
     finally:
         mcts._simulate_once, command.run_selfplay_segment, mcts.gather_rows, mcts._descend_interior = kept
-        shutil.rmtree(root, ignore_errors=True)
-    return {"launches": launches, "sims": run_sims, "delivered_vps": delivered, "outside_s": wall - seg_s,
+    return {"rows_dir": os.path.join(root, "b1", "selfplay", model, "tdata"), "launches": launches,
+            "sims": run_sims, "delivered_vps": delivered, "outside_s": wall - seg_s,
             "segment_walls": walls["segment"], "segment_sims": moves * visits, "gather": gather_timings, "gather_max_abs_err": gather_err,
             "gather_shape": next(s for s in gather_timings if s[0] == batch),
             "descent": descent_timings, "rows_runs": parts_b}
+
+
+TRAIN_CFG = "configs/train.cfg"
+FLAGSHIP_CKPT = "artifacts/flagship_b6c96/train/run/checkpoint.ckpt"
+# card against CPU, one float32 b6c96 step from the flagship state: the
+# gradients differ by the order of float32 sums over 256 rows x 25 cells
+# (cuDNN's against the CPU's convolutions, TF32 off), a few ulps of a
+# gradient; the step moves a parameter by lr * |u| (lr 0.004 here) and the
+# EMA by a thousandth of that, far below 1e-5; the trace carries the
+# gradient itself, whose elements are below 1. PERF.md records the choice.
+TRAIN_PARAM_TOL = 1e-5
+TRAIN_METRIC_RTOL = 1e-4
+LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def train_step_flops(model, batch: int, area: int) -> float:
+    """Multiply-adds x 2 of one train step's convolutions and dense layers:
+    forward once, backward twice (input and weight gradients)."""
+    import torch
+
+    macs = 0
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            macs += m.weight.numel() * area * batch
+        elif isinstance(m, torch.nn.Linear):
+            macs += m.weight.numel() * batch
+    return 2.0 * 3 * macs
+
+
+def phase_trainer(dev, cfg, rows_dir, positions, root, batch_size=256, steps=80, export_every=40, timed=30,
+                  warmup=5, profile_steps=5):
+    """The trainer: the selfplay command's shards (`rows_dir`) shuffled by
+    the port's `shuffle` CLI into `root`/shuffleddata with a 5 % val split,
+    the flagship checkpoint (the JAX trainer's step 5200, b6c96) copied to
+    `root`/train/run/, then `command.train.main` with configs/train.cfg
+    (b6c96, B=`batch_size`, bf16 trunk) for `steps` steps, an export every
+    `export_every`:
+      (a) checks: every metric line finite; the checkpoint decodes with
+          train_step 5200 + steps, and its count and step advanced by the
+          steps; the export loads, its heads on `positions` finite and not
+          equal to run-s5200's; find_latest_model over a models dir holding
+          both picks the new one;
+      (b) times, with a device sync at each step's end, after `warmup`
+          untimed steps: ms a step (median, spread), samples/s, the batch
+          iterator's host seconds a batch (timed alone), forward+loss /
+          backward / optimizer+EMA from CUDA events in one more run, peak
+          device memory, and a `profile_steps`-step torch.profiler profile
+          (launches and host syncs a step, device busy share, top kernels);
+      (c) one float32 step from the flagship state on one batch with
+          injected symmetries and history depths, on the card and on the
+          CPU: every metric within TRAIN_METRIC_RTOL relative, every
+          parameter, trace and EMA leaf within TRAIN_PARAM_TOL *
+          max(|x|, 1)."""
+    import dataclasses
+    import math
+    import os
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from katacoffee_tpu_torch import cli
+    from katacoffee_tpu_torch.command import train as command
+    from katacoffee_tpu_torch.dataio import checkpoints as ckpt
+    from katacoffee_tpu_torch.dataio import flaxbytes
+    from katacoffee_tpu_torch.dataio.trainingwrite import iter_shards, read_npz_rows, rows_to_batch
+    from katacoffee_tpu_torch.nn.configs import get_model_spec
+    from katacoffee_tpu_torch.nn.features import extract_features, sample_history_levels
+    from katacoffee_tpu_torch.nn.model import CoffeeNet
+    from katacoffee_tpu_torch.ops.descend import descend_interior
+    from katacoffee_tpu_torch.ops.gather import gather_rows
+    from katacoffee_tpu_torch.train import train as train_mod
+
+    base = os.path.join(root, "trainer")
+    shuffled = os.path.join(base, "shuffleddata")
+    if cli.main(["shuffle", rows_dir, "-out-dir", shuffled, "-min-rows", "4000", "-val-prop", "0.05",
+                 "-seed", "0"]) != 0:
+        raise AssertionError("shuffle failed")
+    os.makedirs(os.path.join(base, "train", "run"))
+    ckpt_path = os.path.join(base, "train", "run", "checkpoint.ckpt")
+    shutil.copy(FLAGSHIP_CKPT, ckpt_path)
+    start_meta, start_blob = ckpt.read_raw(ckpt_path)
+    start_tree = flaxbytes.decode(start_blob)
+    start_count, start_step = int(start_tree["opt_state"]["2"]["1"]["count"]), int(start_tree["step"])
+
+    # (a) the command, resuming at the flagship's step, with the kernels'
+    # launch counts reset before and read after: training reaches neither
+    gather_rows.launches = descend_interior.launches = 0
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    command.main(["-base-dir", base, "-config", TRAIN_CFG, "-override-config",
+                  f"maxSteps={steps},stepsPerExport={export_every},batchSize={batch_size}"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    kernel_launches = {"gather_rows": gather_rows.launches, "descend_interior": descend_interior.launches}
+    run_dir = os.path.join(base, "train", "run")
+    lines = {name: [json.loads(x) for x in open(os.path.join(run_dir, name))]
+             for name in ("metrics_train.json", "metrics_val.json")}
+    for name, ls in lines.items():
+        bad = [(m["step"], k) for m in ls for k, v in m.items() if isinstance(v, float) and not math.isfinite(v)]
+        if not ls or bad:
+            raise AssertionError(f"{name}: {len(ls)} lines, non-finite {bad}")
+    meta, blob = ckpt.read_raw(ckpt_path)
+    tree = flaxbytes.decode(blob)
+    end = start_meta["train_step"] + steps
+    count, step = int(tree["opt_state"]["2"]["1"]["count"]), int(tree["step"])
+    if (meta["train_step"], count, step) != (end, start_count + steps, start_step + steps):
+        raise AssertionError(f"checkpoint train_step {meta['train_step']}, count {count}, step {step}: not "
+                             f"{end}, {start_count + steps}, {start_step + steps}")
+    export = os.path.join(base, "modelstobetested", f"run-s{end}")
+    new, _, new_meta = ckpt.load_exported_model(export, dev)
+    old = ckpt.load_exported_model(MODEL_DIR, dev)[0]
+    spatial, glob = (x.to(dev) for x in extract_features(cfg, positions))
+    with torch.no_grad():
+        a, b = new(spatial, glob), old(spatial, glob)
+    moved = max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+    if not all(bool(torch.isfinite(v).all()) for v in a.values()) or moved == 0.0:
+        raise AssertionError(f"the export's heads are not finite or equal run-s5200's (max |d| {moved})")
+    models = os.path.join(base, "models")
+    os.makedirs(models)
+    os.symlink(os.path.abspath(MODEL_DIR), os.path.join(models, os.path.basename(MODEL_DIR)))
+    os.symlink(export, os.path.join(models, os.path.basename(export)))
+    latest = ckpt.find_latest_model(models)
+    if latest is None or os.path.basename(latest) != os.path.basename(export):
+        raise AssertionError(f"find_latest_model picked {latest}, not {export}")
+    first, last = lines["metrics_train.json"][0], lines["metrics_train.json"][-1]
+    log(f"trainer (a): shuffled {rows_dir} ({sorted(os.listdir(shuffled))}); `train` resumed the flagship "
+        f"checkpoint at step {start_meta['train_step']} (count {start_count}) and took {steps} b6c96 B={batch_size} bf16 "
+        f"steps in {wall:.3f} s: loss {first['loss']:.4f} at step {first['step']} -> {last['loss']:.4f} at "
+        f"{last['step']}, p_lr {last['p_lr']}, val loss {lines['metrics_val.json'][-1]['loss']:.4f} on "
+        f"{lines['metrics_val.json'][-1]['rows']} rows; checkpoint train_step {meta['train_step']}, count {count}, "
+        f"step {step}; exported {os.path.basename(export)} (train_step {new_meta['train_step']}): heads finite, "
+        f"max |d| from run-s5200 {moved:.4e}; find_latest_model picks it; kernel launches in the run "
+        f"{kernel_launches}")
+
+    # (b) times on the run's own data and state
+    tc = train_mod.TrainConfig()
+    model = CoffeeNet(get_model_spec("b6c96"), cfg.win_len).to(dev)
+    state, _ = ckpt.load_checkpoint(ckpt_path, train_mod.init_train_state(model))
+    step_fn = train_mod.make_train_step(cfg, tc, batch_size)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = command._batch_iterator(shuffled, batch_size, np.random.default_rng(0), cfg, dev)
+    pool = [next(batches)[1] for _ in range(warmup + timed)]
+    iter_s = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        next(batches)
+        torch.cuda.synchronize()
+        iter_s.append(time.monotonic() - t)
+    for b in pool[:warmup]:
+        step_fn(state, b, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # tensors other phases keep alive count in the device's peak: report the
+    # steps' own peak above what was allocated when they started
+    live = torch.cuda.memory_allocated()
+    step_ms = []
+    for b in pool[warmup:]:
+        t = time.monotonic()
+        step_fn(state, b, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - live
+    parts = {"forward+loss": [], "backward": [], "optimizer+EMA": []}
+    for b in pool[warmup:]:
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(part):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((part, e))
+
+        step_fn(state, b, gen, mark=mark)
+        torch.cuda.synchronize()
+        for (_, e0), (part, e1) in zip(marks, marks[1:]):
+            parts[part].append(e0.elapsed_time(e1))
+    med = statistics.median(step_ms)
+    flops = train_step_flops(model, batch_size, cfg.area)
+    log(f"trainer (b), {card_line()}: {timed} b6c96 B={batch_size} bf16 steps after {warmup} untimed, each ended "
+        f"by a device sync: median {med:.3f} ms a step (min {min(step_ms):.3f}, max {max(step_ms):.3f}, "
+        f"p10 {np.percentile(step_ms, 10):.3f}, p90 {np.percentile(step_ms, 90):.3f}), "
+        f"{batch_size / med * 1e3:.1f} samples/s; the batch iterator alone {statistics.median(iter_s) * 1e3:.3f} ms "
+        f"of host time a batch (median; max {max(iter_s) * 1e3:.3f}); by part from CUDA events (median ms): "
+        + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in parts.items())
+        + f"; peak device memory {peak / 2**20:.1f} MiB above the {live / 2**20:.1f} MiB live before the steps "
+        f"(the state and batches included); convolution and dense FLOPs a step {flops / 1e9:.2f} G, "
+        f"{flops / BF16_FLOPS * 1e3:.4f} ms at the card's bf16 tensor peak")
+
+    t = time.monotonic()
+    for b in pool[warmup: warmup + profile_steps]:
+        step_fn(state, b, gen)
+    torch.cuda.synchronize()
+    prof_wall = time.monotonic() - t
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in pool[warmup: warmup + profile_steps]:
+            step_fn(state, b, gen)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = {k: sum(e.count for e in events if e.key == k) / profile_steps for k in LAUNCH_EVENTS}
+    launches = {k: v for k, v in launches.items() if v}
+    syncs = {k: sum(e.count for e in events if e.key == k) / profile_steps
+             for k in ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaDeviceSynchronize")}
+    log(f"trainer (b) profile of {profile_steps} steps: wall {prof_wall:.3f} s unprofiled, device busy {busy:.4f} s "
+        f"({busy / prof_wall:.1%}); a step: launches {launches}, {sum(e.count for e in kernels) / profile_steps:.0f} "
+        f"device kernels, host syncs {syncs}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+
+    # (c) card against CPU, float32, one step with injected draws
+    g = torch.Generator().manual_seed(7)
+    syms = torch.randint(0, 8, (batch_size,), generator=g)
+    levels = sample_history_levels(batch_size, 0.7, generator=g)
+    data = read_npz_rows(next(iter_shards(shuffled)))
+    rows = {k: v[:batch_size] for k, v in data.items()}
+    f32 = dataclasses.replace(get_model_spec("b6c96"), dtype=torch.float32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        s, _ = ckpt.load_checkpoint(FLAGSHIP_CKPT, train_mod.init_train_state(CoffeeNet(f32, cfg.win_len).to(d)))
+        s, m = train_mod.make_train_step(cfg, tc, batch_size)(s, rows_to_batch(rows, cfg, d),
+                                                              draws=train_mod.StepDraws(syms.to(d), levels.to(d)))
+        out.append(({k: float(v) for k, v in m.items()}, ckpt.flatten(ckpt.state_to_tree(s))))
+    (gm, gt), (cm, ct) = out
+    metric_err = max(abs(gm[k] - cm[k]) / max(abs(cm[k]), 1.0) for k in cm)
+    leaf_err = {}
+    for k in ct:
+        if k.startswith(("params", "opt_state", "ema_params")) and ct[k].dtype == np.float32:
+            part = k.split("/")[0]
+            d = float(np.abs(gt[k].astype(np.float64) - ct[k]).max() / max(float(np.abs(ct[k]).max()), 1.0))
+            leaf_err[part] = max(leaf_err.get(part, 0.0), d)
+    log(f"trainer (c): one float32 b6c96 step from the flagship state on a {batch_size}-row batch with injected draws, card "
+        f"against CPU: loss {gm['loss']:.6f} / {cm['loss']:.6f}, grad_norm {gm['grad_norm']:.6f} / "
+        f"{cm['grad_norm']:.6f}; largest metric difference {metric_err:.3e} relative (tol {TRAIN_METRIC_RTOL}); "
+        f"largest leaf difference / max(|x|, 1): " + ", ".join(f"{k} {v:.3e}" for k, v in leaf_err.items())
+        + f" (tol {TRAIN_PARAM_TOL})")
+    if metric_err > TRAIN_METRIC_RTOL or max(leaf_err.values()) > TRAIN_PARAM_TOL:
+        raise AssertionError("the card's float32 train step disagrees with the CPU's")
+    return {
+        "steps": steps, "command_wall_s": wall, "ms_per_step_median": med, "ms_per_step_min": min(step_ms),
+        "ms_per_step_max": max(step_ms), "samples_per_s": batch_size / med * 1e3,
+        "iterator_ms_per_batch": statistics.median(iter_s) * 1e3,
+        "parts_ms": {k: statistics.median(v) for k, v in parts.items()}, "peak_mib": peak / 2**20,
+        "live_mib": live / 2**20,
+        "launches_per_step": sum(launches.values()), "syncs_per_step": syncs, "busy_share": busy / prof_wall,
+        "flops_per_step": flops, "bound_ms": flops / BF16_FLOPS * 1e3, "card_vs_cpu_metric_rel": metric_err, "card_vs_cpu_leaf": leaf_err,
+        "loss_first": first["loss"], "loss_last": last["loss"], "export": os.path.basename(export),
+        "kernel_launches": kernel_launches,
+    }
 
 
 PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_lookup", "_bias_keys", "_bias_avg",
@@ -1499,18 +1761,25 @@ def main() -> int:
     card_cpu = phase_selfplay_card_vs_cpu(dev, cfg)
     branches = phase_selfplay_branches(dev, cfg, selfplay, finishing.pop("traj"))
 
-    log("phase 6: the selfplay command (the slice's main path)")
-    command = phase_selfplay_command(dev, cfg)
+    work = tempfile.mkdtemp(prefix="katacoffee_smoke_")
+    try:
+        log("phase 6: the selfplay command")
+        command = phase_selfplay_command(dev, cfg, work)
+        log("phase 7: the trainer (this slice's main path), on phase 6's shards")
+        trainer = phase_trainer(dev, cfg, command["rows_dir"], positions, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
-    log("phase 7: profiles")
+    log("phase 8: profiles")
     profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
     ab = profiles.pop("randomization_ab")
     log("per playout: cudaLaunchKernel " + ", ".join(
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
-    # the kernels line reports the main path (phase 6 (a)): its launches,
-    # and each kernel's check and times on the inputs that path gave it
+    # the kernels line reports the kernels' path (phase 6 (a)): its launches,
+    # and each kernel's check and times on the inputs that path gave it;
+    # the trainer's path (phase 7) launches neither
     shape = command["gather_shape"]
     t = command["gather"][shape]
     gather_entry = {
@@ -1520,6 +1789,7 @@ def main() -> int:
         "replaces": "katacoffee_tpu/ops/gather.py:39",
         "launches": command["launches"]["gather_rows"],
         "launches_segment_path": selfplay["launches"]["gather_rows"],
+        "launches_trainer_path": trainer["kernel_launches"]["gather_rows"],
         "max_abs_err": max(kern["max_abs_err"], command["gather_max_abs_err"]),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -1545,6 +1815,7 @@ def main() -> int:
         "launches": command["launches"]["descend_interior"],
         "simulations_run_selfplay_command": command["sims"],
         "launches_segment_path": selfplay["launches"]["descend_interior"],
+        "launches_trainer_path": trainer["kernel_launches"]["descend_interior"],
         "max_abs_err": max(desc["max_abs_err"], *(v["max_abs_err"] for v in command["descent"].values())),
         "ms": timed["ms"],
         "plain_ms": timed["plain_ms"],
@@ -1574,14 +1845,16 @@ def main() -> int:
     per_sim = [selfplay["segment_walls"][0] / selfplay["segment_sims"] * 1e3,
                command["segment_walls"][1] / command["segment_sims"] * 1e3]
     own = [r["own_s"] / r["wall_s"] for r in command["rows_runs"]]
-    log(f"phase 8: done; default B=512 600-visit search {search['vps']:.1f} visits/s; {SELFPLAY_METRIC} "
+    log(f"phase 9: done; default B=512 600-visit search {search['vps']:.1f} visits/s; {SELFPLAY_METRIC} "
         f"{selfplay['delivered_vps']:.1f} (fresh move {selfplay['fresh_move_ms']:.1f} ms, reused move "
         f"{selfplay['reused_move_ms']:.1f} ms); side segment {branches['side_s']:.3f} s; selfplay command "
         f"{command['delivered_vps']:.1f} visits/s over its segments, {command['outside_s']:.3f} s outside them; "
         f"plies 3-4, ms a simulation: B=512 segment {per_sim[0]:.2f}, the command's B=256 segment {per_sim[1]:.2f}; "
         f"the daemon's own work in the rows runs " + ", ".join(f"{x:.2%}" for x in own) + " of the wall; "
-        f"randomized evaluator {ab['randomized_ms'] / ab['plain_ms'] - 1:+.2%} on a fresh search")
+        f"randomized evaluator {ab['randomized_ms'] / ab['plain_ms'] - 1:+.2%} on a fresh search; trainer "
+        f"{trainer['ms_per_step_median']:.3f} ms a b6c96 B=256 step, {trainer['samples_per_s']:.1f} samples/s")
     print(card_line(), flush=True)
+    print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)
     print(json.dumps({
         "ok": True,

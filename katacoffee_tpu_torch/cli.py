@@ -1,9 +1,11 @@
 """Subcommand dispatch for the port, `python -m katacoffee_tpu_torch <cmd>`
-(the JAX package's `katacoffee_tpu/cli.py`). Only `selfplay` is ported; any
-other subcommand exits non-zero and says so."""
+(the JAX package's `katacoffee_tpu/cli.py`). The ported subcommands are
+`selfplay`, `shuffle`, `train`, `validate` and `checkpoint`; any other exits
+non-zero and says so."""
 
 from __future__ import annotations
 
+import argparse
 import sys
 
 from katacoffee_tpu_torch import __version__
@@ -15,9 +17,37 @@ Usage: python -m katacoffee_tpu_torch <subcommand> [args]
   selfplay -output-dir DIR [-config FILE] [-override-config k=v,...]
                training-data daemon on the GPU: polls DIR/models, writes
                DIR/selfplay/<model>/{{tdata,sgfs}}
+  shuffle DATA_DIR... -out-dir DIR [-min-rows N] [-val-prop P] [-seed S]
+               power-law window of the newest rows, shuffled into chunks
+  train -base-dir DIR [-config FILE] [-override-config k=v,...]
+               trainer on the GPU: DIR/shuffleddata -> DIR/train/<run>,
+               exports DIR/modelstobetested/<run>-s<step>
+  validate MODEL_DIR DATA_DIR... [-max-rows N]
+               loss metrics of an exported model over training rows
+  checkpoint dump|edit|export ...
+               inspect, edit or export a trainer checkpoint
 
 Every other subcommand of `python -m katacoffee_tpu` is not ported yet.
 """
+
+
+def _shuffle(args: list[str]) -> int:
+    from katacoffee_tpu_torch.dataio.shuffle import shuffle_data
+
+    ap = argparse.ArgumentParser(prog="katacoffee_tpu_torch shuffle")
+    ap.add_argument("data_dirs", nargs="+")
+    ap.add_argument("-out-dir", required=True)
+    ap.add_argument("-min-rows", type=int, default=250000)
+    ap.add_argument("-expand-window-per-row", type=float, default=0.4)
+    ap.add_argument("-taper-window-exponent", type=float, default=0.65)
+    ap.add_argument("-keep-target-rows", type=int, default=None)
+    ap.add_argument("-val-prop", type=float, default=0.0)
+    ap.add_argument("-seed", type=int, default=None)
+    a = ap.parse_args(args)
+    print(shuffle_data(a.data_dirs, a.out_dir, min_rows=a.min_rows, expand_window_per_row=a.expand_window_per_row,
+                       taper_window_exponent=a.taper_window_exponent, keep_target_rows=a.keep_target_rows,
+                       val_prop=a.val_prop, seed=a.seed))
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -31,6 +61,21 @@ def main(argv: list[str] | None = None) -> int:
 
         selfplay_main(args)
         return 0
+    if cmd == "shuffle":
+        return _shuffle(args)
+    if cmd == "train":
+        from katacoffee_tpu_torch.command.train import main as train_main
+
+        train_main(args)
+        return 0
+    if cmd == "validate":
+        from katacoffee_tpu_torch.command.validate import main as validate_main
+
+        return validate_main(args)
+    if cmd == "checkpoint":
+        from katacoffee_tpu_torch.command.checkpoint import main as checkpoint_main
+
+        return checkpoint_main(args)
     print(f"katacoffee_tpu_torch: {cmd} is not ported (or unknown); python -m katacoffee_tpu {cmd} runs the JAX "
           f"package's\n\n{_HELP}", file=sys.stderr)
     return 2

@@ -36,7 +36,7 @@ import torch
 from katacoffee_tpu_torch.dataio.checkpoints import find_latest_model, load_exported_model
 from katacoffee_tpu_torch.dataio.sgf import write_sgf
 from katacoffee_tpu_torch.dataio.trainingwrite import TrainingDataWriter
-from katacoffee_tpu_torch.device import resolve_device
+from katacoffee_tpu_torch.device import refuse_multi_host, refuse_several_gpus, resolve_device
 from katacoffee_tpu_torch.game.board import GameConfig, GameState, init_state
 from katacoffee_tpu_torch.search.mcts import make_nn_eval_fn, uniform_eval_fn
 from katacoffee_tpu_torch.search.params import SearchParams
@@ -60,9 +60,6 @@ from katacoffee_tpu_torch.selfplay.startposes import load_startposes
 from katacoffee_tpu_torch.selfplay.treerecord import tree_position_rows
 from katacoffee_tpu_torch.utils.config import ConfigParser
 from katacoffee_tpu_torch.utils.logger import Logger
-
-_MULTI_GPU = "ROADMAP Queue 1 item 11 (multiple GPUs)"
-
 
 def extract_episodes(cfg: GameConfig, traj: Trajectory) -> list[tuple[list, int]]:
     """Complete episodes of a trajectory window as ([(x, y, d, pla)], winner),
@@ -279,11 +276,7 @@ def run_selfplay_daemon(
     the flush's finalize, write, forks and sgfs), with a device
     synchronization at the end of each; without `walls` nothing is timed."""
     dev = resolve_device(device)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if spc.use_mesh and n_dev > 1 and spc.batch_size % n_dev == 0:
-        raise NotImplementedError(
-            f"katacoffee_tpu_torch selfplay: sharding the game batch over {n_dev} GPUs (use_mesh) is not ported "
-            f"yet, {_MULTI_GPU}; make one GPU visible (CUDA_VISIBLE_DEVICES)")
+    refuse_several_gpus("selfplay", dev, spc.use_mesh, spc.batch_size)
     logger = logger or Logger(log_to_stdout=True)
     models_dir = os.path.join(base_dir, "models")
     generator = torch.Generator(device=dev).manual_seed(spc.seed)
@@ -468,20 +461,11 @@ def run_mixed_selfplay(
     return total_rows
 
 
-def _refuse_multi_host() -> None:
-    """A multi-process launch (torch's WORLD_SIZE, or the JAX package's
-    coordinator variables that the loop's launch scripts set) is not ported."""
-    env = os.environ
-    if (int(env.get("WORLD_SIZE") or 1) > 1 or env.get("JAX_COORDINATOR_ADDRESS")
-            or int(env.get("JAX_NUM_PROCESSES") or 1) > 1):
-        raise NotImplementedError(f"katacoffee_tpu_torch selfplay: multi-host runs are not ported yet, {_MULTI_GPU}")
-
-
 def main(argv, *, device: str | torch.device | None = None, walls: dict | None = None) -> None:
     """Entry for `python -m katacoffee_tpu_torch selfplay` (JAX
     selfplay.py:509): the same flags and config keys. Runs on `device`
     (default `cuda`); `walls` collects the daemon's seconds by part."""
-    _refuse_multi_host()
+    refuse_multi_host("selfplay")
     dev = resolve_device(device)
     ap = argparse.ArgumentParser(prog="katacoffee_tpu_torch selfplay")
     ap.add_argument("-output-dir", required=True)

@@ -7,11 +7,11 @@ applied in that order; transposes need a square board. Directions transform
 as lines: NE <-> NW iff exactly one of flipX / flipY, N <-> W iff transpose.
 
 Every function works on tensors with a leading batch axis. Where the JAX
-package takes one symmetry (an int), the state, spot, direction, action and
-policy transforms here also take a [B] tensor of symmetries, one per game:
-they are table lookups and index gathers, exact copies of the values. No
-function draws a random number by itself: `random_symmetry` takes a
-`torch.Generator`.
+package takes one symmetry (an int), the state, spot, direction, action,
+policy, plane and feature transforms here also take a [B] tensor of
+symmetries, one per game: they are table lookups and index gathers, exact
+copies of the values. No function draws a random number by itself:
+`random_symmetry` takes a `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -147,8 +147,15 @@ def _check_square(cfg: GameConfig, sym) -> None:
         raise ValueError("a transpose symmetry needs a square board")
 
 
-def apply_plane(sym: int, plane: torch.Tensor) -> torch.Tensor:
-    """Apply to the trailing two (H, W) axes of a tensor."""
+def apply_plane(sym, plane: torch.Tensor) -> torch.Tensor:
+    """Apply to the trailing two (H, W) axes of a tensor. `sym` is an int,
+    or a [B] tensor, one symmetry per row of a [B, ..., H, W] tensor: then
+    one gather on the device."""
+    if isinstance(sym, torch.Tensor):
+        h, w = plane.shape[-2:]
+        spots = _source_spots(w, h, plane.device)[sym.to(torch.int64)]  # [B, area]
+        flat = plane.reshape(plane.shape[0], -1, h * w)
+        return torch.gather(flat, 2, spots[:, None, :].expand(flat.shape)).reshape(plane.shape)
     if is_flip_y(sym):
         plane = torch.flip(plane, dims=(-2,))
     if is_flip_x(sym):
@@ -206,12 +213,19 @@ def _feature_channels(sym: int, num_channels: int) -> list:
 
 
 @functools.lru_cache(maxsize=None)
+def _source_spots(x_size: int, y_size: int, device: torch.device) -> torch.Tensor:
+    """[nsym, area] int64: the input spot each output spot reads."""
+    nsym = num_symmetries(GameConfig(x_size, y_size))
+    spots = _spot_table_np(x_size, y_size)[[invert(s) for s in range(nsym)]]
+    return torch.from_numpy(np.asarray(spots, np.int64)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def _feature_tables(x_size: int, y_size: int, num_channels: int, device: torch.device):
     """(source spot [nsym, area], source channel [nsym, C]) int64 tables."""
     nsym = num_symmetries(GameConfig(x_size, y_size))
-    spots = _spot_table_np(x_size, y_size)[[invert(s) for s in range(nsym)]]
     chans = np.asarray([_feature_channels(s, num_channels) for s in range(nsym)], np.int64)
-    return tuple(torch.from_numpy(np.asarray(t, np.int64)).to(device) for t in (spots, chans))
+    return _source_spots(x_size, y_size, device), torch.from_numpy(chans).to(device)
 
 
 def apply_features(sym, spatial: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from katacoffee_tpu_torch.game.board import (
+    D_NONE,
     NUM_DIRECTIONS,
     GameConfig,
     GameState,
@@ -26,6 +27,41 @@ from katacoffee_tpu_torch.game.board import (
 
 NUM_FEATURES_SPATIAL = 18
 NUM_FEATURES_GLOBAL = 1
+
+
+def mask_history_state(state: GameState, keep: torch.Tensor) -> GameState:
+    """Each row's visible move history cut to its last `keep` (0..5) moves,
+    `keep` a [B] integer tensor (JAX features.py:48, batched). The state is
+    rewritten, not just the planes: the last move constrains legality, so
+    keep == 0 clears last_spot and last_dir too, as a position set up
+    without history has them; keep >= 1 keeps the last move and hides the
+    moves further back."""
+    keep = keep.to(state.recent_spots.device)
+    vis = torch.arange(state.recent_spots.shape[1], device=keep.device)[None, :] < keep[:, None]
+    has_last = keep > 0
+    return state._replace(
+        last_spot=torch.where(has_last, state.last_spot, -1),
+        last_dir=torch.where(has_last, state.last_dir, D_NONE),
+        recent_spots=torch.where(vis, state.recent_spots, -1),
+        recent_dirs=torch.where(vis, state.recent_dirs, D_NONE),
+    )
+
+
+def sample_history_levels(
+    n: int,
+    keep_prob: float = 0.98,
+    *,
+    generator: torch.Generator | None = None,
+    uniforms: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Per-row history depths [n] in 0..5 with the reference's chained draw
+    (JAX features.py:73): depth >= k with probability keep_prob^k. The [n, 5]
+    uniforms are drawn from `generator` (on its device) or given."""
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("sample_history_levels needs a generator or the uniforms")
+        uniforms = torch.rand((n, 5), generator=generator, device=generator.device)
+    return torch.cumprod((uniforms < keep_prob).to(torch.int32), dim=1).sum(dim=1)
 
 
 def extract_features(cfg: GameConfig, state: GameState):

@@ -256,3 +256,38 @@ class CoffeeNet(nn.Module):
         out["opponent_policy_logits"] = policy[:, 1]
         out["optimistic_policy_logits"] = policy[:, 2]
         return out
+
+
+# variance_scaling scales that JAX model.py:195-243 names; every other conv and
+# dense kernel takes flax's default lecun_normal (scale 1)
+_INIT_SCALES = {
+    "policy_head.conv2.weight": 0.09,
+    "value_head.linear1.weight": 0.09,
+    "value_head.linear2.weight": 0.09,
+    "value_head.conv1.weight": 0.04,
+    "value_head.conv2.weight": 0.04,
+    "value_head.conv3.weight": 0.04,
+}
+# flax's truncated_normal variance_scaling divides the stddev by the std of a
+# unit normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_params(model: CoffeeNet, generator: torch.Generator) -> CoffeeNet:
+    """Fresh weights for a run with no checkpoint, in place, with the
+    distributions of JAX `init_params` (model.py:289; threefry's values
+    cannot be reproduced): every conv and dense kernel a truncated normal
+    within 2 stddevs, variance_scaling(scale, "fan_in") with the scale of
+    `_INIT_SCALES` or 1 (lecun_normal); biases and the ReZero gates `alpha`
+    and `alpha_inner*` zero. Draws come from `generator`, on the model's
+    device."""
+    for name, p in model.named_parameters():
+        if not name.endswith(".weight"):
+            p.zero_()
+            continue
+        fan_in = p[0].numel()  # [out, in, kh, kw] or [out, in]
+        std = math.sqrt(_INIT_SCALES.get(name, 1.0) / fan_in) / _TRUNCATED_STD
+        nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std, generator=generator)
+    return model
+

@@ -1,0 +1,9 @@
+from katacoffee_tpu_torch.train.losses import compute_losses
+from katacoffee_tpu_torch.train.replay import ReplayBuffer
+from katacoffee_tpu_torch.train.train import (
+    StepDraws,
+    TrainConfig,
+    TrainState,
+    init_train_state,
+    make_train_step,
+)

@@ -3,6 +3,7 @@ nor the JAX package, its entry points refuse to fall back to the CPU when no
 GPU is present, and it commits only small text files."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -12,7 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "katacoffee_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "katacoffee_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "katacoffee_tpu")
 
 
 def _port_sources():
@@ -60,6 +61,7 @@ def test_the_actor_modules_are_checked():
 def test_forbidden_match_is_exact():
     assert _forbidden("katacoffee_tpu") and _forbidden("katacoffee_tpu.search")
     assert _forbidden("jax.numpy") and not _forbidden("katacoffee_tpu_torch.search")
+    assert _forbidden("msgpack") and _forbidden("optax.contrib") and not _forbidden("msgpack_numpy_free")
 
 
 def test_importing_the_port_loads_no_reference_package():
@@ -220,11 +222,95 @@ def test_selfplay_command_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
         selfplay.run_selfplay_daemon(str(tmp_path), GameConfig(), SearchParams.for_selfplay(), spc, device="cuda")
 
 
-def test_cli_runs_selfplay_only(capsys):
-    from katacoffee_tpu_torch import cli
+TRAINER_MODULES = ("nn/features.py", "nn/model.py", "dataio/flaxbytes.py", "dataio/checkpoints.py",
+                   "train/losses.py", "train/train.py", "train/replay.py", "train/__init__.py", "command/train.py",
+                   "command/validate.py", "command/checkpoint.py", "device.py")
 
-    assert cli.main([]) == 0 and "selfplay" in capsys.readouterr().out
-    for cmd in ("train", "gtp", "shuffle"):
+
+def test_the_trainer_modules_are_checked():
+    """The trainer's modules are among the sources checked above and among
+    the modules imported without the reference package."""
+    sources = _port_sources()
+    imported = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in PORT.rglob("*.py")}
+    for rel in TRAINER_MODULES:
+        assert PORT / rel in sources, rel
+        assert ".".join(Path(rel).with_suffix("").parts) in imported, rel
+
+
+def test_trainer_entry_points_refuse_the_cpu_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from katacoffee_tpu_torch.command import checkpoint, train, validate
+    from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.train.train import TrainConfig
+
+    trc = train.TrainerConfig(model="b1c6", batch_size=4, max_steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run_training(str(tmp_path), GameConfig(), TrainConfig(), trc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run_training_mixed(str(tmp_path), [GameConfig()], TrainConfig(), trc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["-base-dir", str(tmp_path), "-override-config", "maxSteps=1"])
+    model = str(ROOT / "tests/goldens/tinynet")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        validate.main([model, str(tmp_path)])
+    ckpt = str(ROOT / "artifacts/flagship_b6c96/train/run/checkpoint.ckpt")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.main(["export", "-checkpoint", ckpt, "-model", "b6c96", "-out-dir", str(tmp_path / "m")])
+    assert os.listdir(tmp_path) == []
+
+
+def test_trainer_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
+    """The sharded train step and multi-process launches name the roadmap
+    item that ports them."""
+    from katacoffee_tpu_torch.command import train
+    from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.train.train import TrainConfig
+
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        train.main(["-base-dir", str(tmp_path)], device="cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    trc = train.TrainerConfig(model="b1c6", batch_size=256)
+    for run in (lambda: train.run_training(str(tmp_path), GameConfig(), TrainConfig(), trc, device="cuda"),
+                lambda: train.run_training_mixed(str(tmp_path), [GameConfig()], TrainConfig(), trc,
+                                                 device="cuda")):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            run()
+    assert os.listdir(tmp_path) == []
+
+
+def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
+    """`train`, `shuffle`, `validate` and `checkpoint` dispatch to their
+    commands (each here stubbed to echo its arguments); `gtp` and unknown
+    subcommands exit 2 and say they are not ported."""
+    from katacoffee_tpu_torch import cli
+    from katacoffee_tpu_torch.command import checkpoint, selfplay, train, validate
+    from katacoffee_tpu_torch.dataio import shuffle
+
+    assert cli.main([]) == 0
+    out = capsys.readouterr().out
+    for cmd in ("selfplay", "train", "shuffle", "validate", "checkpoint"):
+        assert cmd in out
+    seen = []
+    monkeypatch.setattr(selfplay, "main", lambda argv: seen.append(("selfplay", argv)))
+    monkeypatch.setattr(train, "main", lambda argv: seen.append(("train", argv)))
+    monkeypatch.setattr(validate, "main", lambda argv: seen.append(("validate", argv)) or 0)
+    monkeypatch.setattr(checkpoint, "main", lambda argv: seen.append(("checkpoint", argv)) or 3)
+    monkeypatch.setattr(shuffle, "shuffle_data", lambda dirs, out, **kw: seen.append(("shuffle", dirs, out, kw)))
+    assert cli.main(["selfplay", "-output-dir", "o"]) == 0
+    assert cli.main(["train", "-base-dir", "b"]) == 0
+    assert cli.main(["validate", "m", "d"]) == 0
+    assert cli.main(["checkpoint", "dump", "-checkpoint", "c"]) == 3
+    assert cli.main(["shuffle", "d1", "d2", "-out-dir", "o", "-min-rows", "5", "-val-prop", "0.1", "-seed", "2"]) == 0
+    assert seen[:4] == [("selfplay", ["-output-dir", "o"]), ("train", ["-base-dir", "b"]), ("validate", ["m", "d"]),
+                        ("checkpoint", ["dump", "-checkpoint", "c"])]
+    assert seen[4][:3] == ("shuffle", ["d1", "d2"], "o")
+    assert seen[4][3] == {"min_rows": 5, "expand_window_per_row": 0.4, "taper_window_exponent": 0.65,
+                          "keep_target_rows": None, "val_prop": 0.1, "seed": 2}
+    capsys.readouterr()
+    for cmd in ("gtp", "nonsense"):
         assert cli.main([cmd]) == 2
         assert f"{cmd} is not ported" in capsys.readouterr().err
-    assert cli.main(["nonsense"]) == 2

@@ -162,3 +162,58 @@ def assert_same_search(jtree, ttree):
     jr, tr = JM.root_values(jtree), TM.root_values(ttree)
     for k in jr:
         np.testing.assert_allclose(tr[k].numpy(), np.asarray(jr[k]), atol=2e-4, rtol=0, err_msg=k)
+
+
+def training_rows(cfg, rows: int, seed: int, zero_policy: float = 0.1, side: float = 0.2) -> dict:
+    """A shard's row dict (schema v2, the writers' dtypes) of random rows:
+    boards and move histories from the seed, about `zero_policy` of the rows
+    with all-zero policy targets and `side` of them side rows (aux_weight 0,
+    game-outcome targets zero)."""
+    rng = np.random.default_rng(seed)
+    Y, X, A = cfg.y_size, cfg.x_size, 4 * cfg.y_size * cfg.x_size
+
+    def probs(*shape, sparse=0.0):
+        p = rng.random(shape) * (rng.random(shape) >= 0.5)
+        p[..., 0] += 1e-3
+        p = p / p.sum(-1, keepdims=True)
+        if sparse:
+            p[rng.random(shape[0]) < sparse] = 0.0
+        return p.astype(np.float16)
+
+    recent = rng.integers(-1, cfg.area, (rows, 6))
+    # a shorter history is cut from the back, as in a real game
+    depth = rng.integers(0, 7, rows)
+    recent = np.where(np.arange(6)[None] < depth[:, None], recent, -1)
+    aux = (rng.random(rows) >= side).astype(np.float32)
+    weight = rng.uniform(0.5, 1.5, rows).astype(np.float32)
+    return {
+        "schema_version": np.asarray([2], np.int32),
+        "board_shape": np.asarray([cfg.x_size, cfg.y_size, cfg.win_len], np.int32),
+        "board": rng.integers(0, 3, (rows, Y, X)).astype(np.int8),
+        "to_move": rng.integers(1, 3, rows).astype(np.int8),
+        "recent_spots": recent.astype(np.int16),
+        "recent_dirs": np.where(recent >= 0, rng.integers(0, 4, (rows, 6)), 4).astype(np.int8),
+        "num_turns": rng.integers(0, 25, rows).astype(np.int16),
+        "policy_target": probs(rows, A, sparse=zero_policy),
+        "opponent_policy_target": probs(rows, A, sparse=zero_policy),
+        "value_target": np.eye(3, dtype=np.float16)[rng.integers(0, 3, rows)],
+        "td_value_targets": probs(rows, 3, 3),
+        "ownership": (rng.integers(-1, 2, (rows, Y, X)) * aux[:, None, None]).astype(np.int8),
+        "line_target": (rng.integers(0, cfg.win_len + 1, (rows, Y, X)) * aux[:, None, None]).astype(np.int8),
+        "futurepos": rng.integers(-1, 2, (rows, 2, Y, X)).astype(np.int8),
+        "var_time_left": (rng.integers(1, 20, rows) * aux).astype(np.float32),
+        "shortterm_value": rng.uniform(-1, 1, rows).astype(np.float32),
+        "weight": weight,
+        "opponent_policy_weight": weight * (rng.random(rows) < 0.8),
+        "aux_weight": aux,
+    }
+
+
+def write_shard(directory, rows: dict, name: str) -> str:
+    """`rows` as `<directory>/<name>.npz`, as the writers store a shard."""
+    import os
+
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(str(directory), name + ".npz")
+    np.savez_compressed(path, **rows)
+    return path
