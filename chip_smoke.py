@@ -31,12 +31,13 @@ the run with a non-zero exit and a traceback:
      TV_MAX); then card against CPU at float32 on B=8;
   5. bench.py's measurement on the port: the
      selfplay actor's `run_selfplay_segment` at B=512, 600 visits, N=182,
-     b6c96 bf16, one untimed 2-move segment from empty boards, then 4 timed
-     ones carrying states and episode ids (delivered visits/s, per-move
+     b6c96 bf16, one untimed 2-move segment from empty boards, then 1 timed
+     one (4 until the gatekeeper's phase came) carrying states and episode ids (delivered visits/s, per-move
      walls, the actor's share), with the launch counts reset before and
      read after (one descent launch per simulation run) and the readouts
      checked on every move; then the rest of the actor: games that finish
-     (B=64 16-move segments until every game ended, then finalize_targets)
+     (B=64 16-move segments at 16 visits until every game ended, then
+     finalize_targets)
      with both kernels against both plain versions under one generator seed
      (every field identical), card against CPU at float32 on a B=8 4-move
      segment with the same injected draws, and side positions, whole-game
@@ -44,16 +45,16 @@ the run with a non-zero exit and a traceback:
      with run_side_segment;
   6. the selfplay command (`phase_selfplay_command`): `command.selfplay.main`
      in this process with configs/selfplay.cfg at B=256 and 600 visits on a
-     temporary directory whose models/ links run-s5200, depth cut to 2
-     segments of 2 moves, with the launch counts reset before and read
+     temporary directory whose models/ links run-s5200, depth cut to 1
+     segment of 2 moves, with the launch counts reset before and read
      after; each kernel then held against its plain version, and timed, on
      copies of the inputs this run gave it (every gather shape; the trees
      of every 100th descent launch of the moves' B=256 and of the side
      searches' 24 lanes, the one with the most levels of each timed); then
-     twice at 64 visits and 2 segments of 16 moves with one seed: the shards
+     twice at 16 visits (64 until the gatekeeper's phase came) and 2
+     segments of 16 moves with one seed: the shards
      read back and checked, the SGFs replayed, both runs' data equal;
-  7. the trainer, the main path since the trainer was ported
-     (`phase_trainer`): the port's `shuffle` over phase 6's shards, then
+  7. the trainer (`phase_trainer`): the port's `shuffle` over phase 6's shards, then
      `command.train.main` with configs/train.cfg (b6c96, B=256, bf16)
      resuming the flagship checkpoint (the JAX trainer's step 5200) for 80
      steps: metrics finite, the checkpoint's step, count and train_step
@@ -61,13 +62,27 @@ the run with a non-zero exit and a traceback:
      step, samples/s, the parts of a step, peak memory and a profile; one
      float32 step on the card against the CPU. The training path launches
      neither kernel (the JAX trainer reaches no Pallas kernel);
-  8. profiles of a short B=512 search under both profiles and with the
+  8. the gatekeeper, the main path since it was ported: (a)
+     `command.gatekeeper.main` in this process with configs/gatekeeper.cfg
+     as it stands (200 games at 150 visits, b6c96 bf16, for_gatekeeper():
+     uncertainty weighting and policy optimism) gating run-s5200 against
+     run-s4800, with both kernels' launch counts set to 0 before and read
+     after and their inputs copied (`PathCopies`, as in phase 6): wall,
+     games/s, plies, searched visits/s, the tally and the decision, every
+     SGF replayed to its winner, each kernel held to its plain version on
+     the copies and timed, and a profile of a B=100 gating search; (b) a
+     float32 gating match of 8 games at 32 visits on the card and on the
+     CPU with the same injected draws, the same games; (c) one cycle of
+     `command.loop.run_loop` at reduced depth (selfplay, shuffle, 20 train
+     steps from the flagship checkpoint, export, a 16-game gate);
+  9. profiles of a short B=512 search under both profiles and with the
      selfplay command's symmetry-randomizing evaluator (device busy share,
      launches and host syncs per playout), and that evaluator's cost in
      alternated pairs;
-  9. the trainer's numbers as one JSON line, the kernel table as one JSON
-     line (launches, check and times from phase 6, the other shapes and
-     trees beside them), then the result line.
+ 10. the trainer's and the gatekeeper's numbers as one JSON line each, the
+     kernel table as one JSON line (launches, check and times from phase 8
+     (a), the earlier paths' launches and the other shapes and trees beside
+     them), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -588,7 +603,7 @@ def phase_net(dev, cfg, positions):
 
 
 def phase_search(dev, cfg, positions, bench_batch=512, bench_visits=600, ab_batch=64,
-                 ab_visits=200, tv_batch=8, tv_visits=64):
+                 ab_visits=100, tv_batch=8, tv_visits=64):
     import torch
 
     import katacoffee_tpu_torch.search.mcts as mcts
@@ -700,7 +715,7 @@ def check_segment(cfg, traj, visits, label) -> None:
         raise AssertionError(f"{label}: a root does not have {visits + 1} visits")
 
 
-def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=4):
+def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=1):
     """The slice's main path, bench.py's measurement: `run_selfplay_segment`
     at B=512, SelfplaySettings(num_sims=600) (policy-init openings, tree
     reuse, N=182), for_selfplay, b6c96 bf16, 2-move segments from empty
@@ -823,8 +838,8 @@ def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=4):
     return out
 
 
-def phase_selfplay_ab(dev, cfg, batch=64, visits=64, moves=16, max_segments=4):
-    """Games that finish: B=64 segments of 16 moves at 64 visits from empty
+def phase_selfplay_ab(dev, cfg, batch=64, visits=16, moves=16, max_segments=4):
+    """Games that finish: B=64 segments of 16 moves at 16 visits from empty
     boards until every game has ended at least once, then finalize_targets,
     once with both kernels and once with both plain versions, under one
     generator seed. Every field of every Trajectory and of the TrainingBatch
@@ -1171,15 +1186,115 @@ def check_path_descent(label, cfg, sp, tree, inputs, timed: bool) -> dict:
     return out
 
 
-def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=64, rows_moves=16, snapshot_every=100):
+class PathCopies:
+    """While entered: counts the simulations the search runs and copies the
+    inputs the main path gives both kernels, each gather's table and
+    indices at its call (the last call of each shape kept) and the tree and
+    inputs of every `snapshot_every`-th descent launch of each batch width.
+    Entering sets both kernels' launch counts to 0; `launches` holds them as
+    read at the exit. `check` then holds each kernel against its plain
+    version on every copy, and times the gathers and, for each width, the
+    descent copy with the most levels."""
+
+    def __init__(self, snapshot_every: int = 100):
+        import collections
+
+        self.snapshot_every = snapshot_every
+        self.sims = 0
+        self.gathers, self.descents, self.descent_calls = {}, {}, collections.Counter()
+        self.launches = None
+
+    def __enter__(self):
+        import torch
+
+        from katacoffee_tpu_torch.ops.descend import descend_interior
+        from katacoffee_tpu_torch.ops.gather import gather_rows
+        from katacoffee_tpu_torch.search import mcts
+
+        kept = self.kept = (mcts._simulate_once, mcts.gather_rows, mcts._descend_interior)
+
+        def simulate(*args, **kwargs):
+            self.sims += 1
+            return kept[0](*args, **kwargs)
+
+        def copy_gather(table, idx):
+            self.gathers[tuple(table.shape) + (idx.shape[1],)] = (table.clone(), idx.clone())
+            return kept[1](table, idx)
+
+        def copy_descent(c, sp, tree, node, depth, active, path, acts, scratch):
+            B = node.shape[0]
+            self.descent_calls[B] += 1
+            if self.descent_calls[B] % self.snapshot_every == 0:
+                copy = mcts.Tree(*(x.map(torch.clone) if isinstance(x, tuple) else x.clone() for x in tree))
+                self.descents.setdefault(B, []).append((self.descent_calls[B], sp, copy, tuple(
+                    x.clone() for x in (node, depth, active, path, acts)) + (mcts.LevelScratch(*(
+                        x.clone() for x in scratch)),)))
+            return kept[2](c, sp, tree, node, depth, active, path, acts, scratch)
+
+        mcts._simulate_once, mcts.gather_rows, mcts._descend_interior = simulate, copy_gather, copy_descent
+        gather_rows.launches = descend_interior.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from katacoffee_tpu_torch.ops.descend import descend_interior
+        from katacoffee_tpu_torch.ops.gather import gather_rows
+        from katacoffee_tpu_torch.search import mcts
+
+        self.launches = {"gather_rows": gather_rows.launches, "descend_interior": descend_interior.launches}
+        mcts._simulate_once, mcts.gather_rows, mcts._descend_interior = self.kept
+        return False
+
+    def check_launches(self, label: str, main_width: int) -> None:
+        """One descent launch per simulation run, some gathers, and a copy
+        of the descent at every batch width it ran at."""
+        if self.launches["descend_interior"] != self.sims:
+            raise AssertionError(f"{label}: descend_interior launched {self.launches['descend_interior']} times, "
+                                 f"not once per simulation run ({self.sims})")
+        if self.launches["gather_rows"] == 0:
+            raise AssertionError(f"{label}: gather_rows was not launched")
+        if set(self.descents) != set(self.descent_calls) or main_width not in self.descents:
+            raise AssertionError(f"{label}: descent launches by batch width {dict(self.descent_calls)}: a width "
+                                 f"with fewer than {self.snapshot_every} launches was not copied, so its kernel is "
+                                 f"not checked")
+
+    def check(self, label: str, cfg) -> dict:
+        gather_timings, gather_err = {}, 0.0
+        for shape, (table, idx) in sorted(self.gathers.items(), reverse=True):
+            gather_timings[shape], err = check_path_gather(f"{label} {shape}", table, idx)
+            gather_err = max(gather_err, err)
+        self.gathers.clear()
+        descent_timings = {}
+        for B, copies in sorted(self.descents.items(), reverse=True):
+            checked = [check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, False)
+                       for n, sp, tree, inputs in copies]
+            log(f"{label} B={B}: descent kernel == plain on the path's own tree at launches "
+                f"{[c[0] for c in copies]}: games descending {[c['games'] for c in checked]}, levels "
+                f"{[c['timed_levels'] for c in checked]}, catch-ups {[c['caught'] for c in checked]}, near-tie act "
+                f"flips {sum(c['flips'] for c in checked)}")
+            best = max(range(len(copies)), key=lambda i: checked[i]["timed_levels"])
+            if checked[best]["timed_levels"] == 0:
+                raise AssertionError(f"{label} B={B}: no copied descent went below the root, so the kernel is not "
+                                     f"checked")
+            n, sp, tree, inputs = copies[best]
+            descent_timings[B] = check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, True)
+            descent_timings[B].update(
+                launch=n, flips=sum(c["flips"] for c in checked), games=sum(c["games"] for c in checked),
+                levels_compared=sum(c["timed_levels"] for c in checked),
+                max_abs_err=max(c["max_abs_err"] for c in checked))
+        self.descents.clear()
+        return {"gather": gather_timings, "gather_max_abs_err": gather_err, "descent": descent_timings}
+
+
+def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=16, rows_moves=16, snapshot_every=100):
     """The selfplay command: `command.selfplay.main`, in this process, on
     output directories under `root` (a temporary directory outside the repo
     that the caller removes) whose models/ links
     run-s5200, with configs/selfplay.cfg (B=256, 600 visits, b6c96 bf16
     with a random symmetry per evaluation, side positions and game forks at
     the cfg's probabilities), the depth cut by overrides:
-      (a) 2 segments of 2 moves, a flush after each: both kernels' launch
-          counts reset before and read after (one descent launch per
+      (a) 1 segment of 2 moves (2 segments until the gatekeeper came),
+          then a flush: both kernels' launch counts reset before and read
+          after (one descent launch per
           simulation run, the side searches' included), delivered visits/s
           of the segments and of the whole daemon, and the daemon's own
           seconds outside the segments by part. Each gather's table and
@@ -1189,7 +1304,7 @@ def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=64
           searches' lanes); after the run each kernel is held against its
           plain version on every copy, and timed on the gathers' and, for
           each width, on the descent copy with the most levels;
-      (b) 64 visits, 2 segments of 16 moves in one flush window, twice with
+      (b) 16 visits, 2 segments of 16 moves in one flush window, twice with
           the same seed: games end, every shard reads back through the
           port's reader and rows_to_batch with weights > 0, policy targets
           summing to 1 (float16), board cells in {0, 1, 2} and the player
@@ -1197,44 +1312,20 @@ def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=64
           winner, one SGF per game ended; both runs' rows equal after a
           stable sort, and their SGFs equal; the daemon's seconds by part.
     The first (b) run's shards are left for the trainer phase (`rows_dir`)."""
-    import collections
     import os
 
     import torch
 
     from katacoffee_tpu_torch.command import selfplay as command
-    from katacoffee_tpu_torch.ops.descend import descend_interior
-    from katacoffee_tpu_torch.ops.gather import gather_rows
-    from katacoffee_tpu_torch.search import mcts
 
     model = os.path.basename(MODEL_DIR)
-    kept = (mcts._simulate_once, command.run_selfplay_segment, mcts.gather_rows, mcts._descend_interior)
+    kept = command.run_selfplay_segment
     ended = []
-    sims = [0]
-    gathers, descents, descent_calls = {}, {}, collections.Counter()
-
-    def simulate(*args, **kwargs):
-        sims[0] += 1
-        return kept[0](*args, **kwargs)
 
     def segment(*args, **kwargs):
-        out = kept[1](*args, **kwargs)
+        out = kept(*args, **kwargs)
         ended.append(int(out[2].done_after.sum()))
         return out
-
-    def copy_gather(table, idx):
-        gathers[tuple(table.shape) + (idx.shape[1],)] = (table.clone(), idx.clone())
-        return kept[2](table, idx)
-
-    def copy_descent(c, sp, tree, node, depth, active, path, acts, scratch):
-        B = node.shape[0]
-        descent_calls[B] += 1
-        if descent_calls[B] % snapshot_every == 0:
-            copy = mcts.Tree(*(x.map(torch.clone) if isinstance(x, tuple) else x.clone() for x in tree))
-            descents.setdefault(B, []).append((descent_calls[B], sp, copy, tuple(
-                x.clone() for x in (node, depth, active, path, acts)) + (mcts.LevelScratch(*(
-                    x.clone() for x in scratch)),)))
-        return kept[3](c, sp, tree, node, depth, active, path, acts, scratch)
 
     def run(name, overrides):
         out = os.path.join(root, name)
@@ -1252,18 +1343,14 @@ def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=64
     def parts_line(walls):
         return ", ".join(f"{k} {sum(v):.3f}" for k, v in walls.items() if k != "segment")
 
-    mcts._simulate_once, command.run_selfplay_segment = simulate, segment
+    command.run_selfplay_segment = segment
     try:
-        moves, segments = 2, 2
-        sims[0] = 0
-        mcts.gather_rows, mcts._descend_interior = copy_gather, copy_descent
-        gather_rows.launches = 0
-        descend_interior.launches = 0
-        out_a, walls, wall = run("a", f"numParallelGames={batch},maxVisits={visits},movesPerSegment={moves},"
-                                      f"maxSegments={segments},segmentsPerFlush=1")
-        launches = {"gather_rows": gather_rows.launches, "descend_interior": descend_interior.launches}
-        mcts.gather_rows, mcts._descend_interior = kept[2:]
-        run_sims = sims[0]
+        moves, segments = 2, 1
+        with PathCopies(snapshot_every) as copies:
+            out_a, walls, wall = run("a", f"numParallelGames={batch},maxVisits={visits},movesPerSegment={moves},"
+                                          f"maxSegments={segments},segmentsPerFlush=1")
+        launches = copies.launches
+        run_sims = copies.sims
         rows_a, _ = read_daemon_rows(cfg, out_a, model, dev)
         seg_s = sum(walls["segment"])
         delivered = batch * visits * moves * segments / seg_s
@@ -1274,43 +1361,12 @@ def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=64
             + f" s; outside the segments {wall - seg_s:.3f} s ({parts_line(walls)}); {rows_a['weight'].shape[0]} "
             f"rows, {side_rows} of them side rows; {sum(ended)} games ended")
         log(f"  launches in the daemon run: descend_interior {launches['descend_interior']} for {run_sims} "
-            f"simulations run (segments and side searches; by batch width {dict(descent_calls)}); gather_rows "
-            f"{launches['gather_rows']} (shapes {sorted(gathers)})")
-        if launches["descend_interior"] != run_sims:
-            raise AssertionError(f"descend_interior launched {launches['descend_interior']} times in the daemon, not "
-                                 f"once per simulation run ({run_sims})")
-        if launches["gather_rows"] == 0:
-            raise AssertionError("gather_rows was not launched by the selfplay command")
+            f"simulations run (segments and side searches; by batch width {dict(copies.descent_calls)}); gather_rows "
+            f"{launches['gather_rows']} (shapes {sorted(copies.gathers)})")
+        copies.check_launches("the selfplay command", batch)
         if side_rows == 0:
             raise AssertionError("the daemon wrote no side-position rows")
-        if set(descents) != set(descent_calls) or batch not in descents:
-            raise AssertionError(f"descent launches by batch width {dict(descent_calls)}: a width with fewer than "
-                                 f"{snapshot_every} launches was not copied, so its kernel is not checked")
-
-        gather_timings, gather_err = {}, 0.0
-        for shape, (table, idx) in sorted(gathers.items(), reverse=True):
-            gather_timings[shape], err = check_path_gather(f"selfplay command (a) {shape}", table, idx)
-            gather_err = max(gather_err, err)
-        gathers.clear()
-        descent_timings = {}
-        for B, copies in sorted(descents.items(), reverse=True):
-            checked = [check_path_descent(f"selfplay command (a) B={B} launch {n}", cfg, sp, tree, inputs, False)
-                       for n, sp, tree, inputs in copies]
-            log(f"selfplay command (a) B={B}: descent kernel == plain on the path's own tree at launches "
-                f"{[c[0] for c in copies]}: games descending {[c['games'] for c in checked]}, levels "
-                f"{[c['timed_levels'] for c in checked]}, catch-ups {[c['caught'] for c in checked]}, near-tie act "
-                f"flips {sum(c['flips'] for c in checked)}")
-            best = max(range(len(copies)), key=lambda i: checked[i]["timed_levels"])
-            if checked[best]["timed_levels"] == 0:
-                raise AssertionError(f"B={B}: no copied descent went below the root, so the kernel is not checked")
-            n, sp, tree, inputs = copies[best]
-            descent_timings[B] = check_path_descent(f"selfplay command (a) B={B} launch {n}", cfg, sp, tree, inputs,
-                                                    True)
-            descent_timings[B].update(
-                launch=n, flips=sum(c["flips"] for c in checked), games=sum(c["games"] for c in checked),
-                levels_compared=sum(c["timed_levels"] for c in checked),
-                max_abs_err=max(c["max_abs_err"] for c in checked))
-        descents.clear()
+        checked = copies.check("selfplay command (a)", cfg)
 
         runs, parts_b = [], []
         for name in ("b1", "b2"):
@@ -1334,12 +1390,11 @@ def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=64
         log(f"  both runs wrote the same {runs[0][0]['weight'].shape[0]} rows (after a stable sort) and the same "
             f"{len(runs[0][1])} SGFs")
     finally:
-        mcts._simulate_once, command.run_selfplay_segment, mcts.gather_rows, mcts._descend_interior = kept
+        command.run_selfplay_segment = kept
     return {"rows_dir": os.path.join(root, "b1", "selfplay", model, "tdata"), "launches": launches,
             "sims": run_sims, "delivered_vps": delivered, "outside_s": wall - seg_s,
-            "segment_walls": walls["segment"], "segment_sims": moves * visits, "gather": gather_timings, "gather_max_abs_err": gather_err,
-            "gather_shape": next(s for s in gather_timings if s[0] == batch),
-            "descent": descent_timings, "rows_runs": parts_b}
+            "segment_walls": walls["segment"], "segment_sims": moves * visits, **checked,
+            "gather_shape": next(s for s in checked["gather"] if s[0] == batch), "rows_runs": parts_b}
 
 
 TRAIN_CFG = "configs/train.cfg"
@@ -1593,6 +1648,229 @@ def phase_trainer(dev, cfg, rows_dir, positions, root, batch_size=256, steps=80,
     }
 
 
+GATE_CFG = "configs/gatekeeper.cfg"
+CHAMPION_DIR = "artifacts/flagship_b6c96/models/run-s4800"
+
+
+def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=10):
+    """The gatekeeper, the main path since the gatekeeper was ported:
+    `command.gatekeeper.main` in this process with configs/gatekeeper.cfg as
+    it stands (200 games, 150 visits, requiredCandidateWinProp 0.5, seed 0)
+    on a base dir under `root` holding copies of run-s4800 as the champion
+    in models/ and run-s5200 as the candidate in modelstobetested/, both
+    b6c96 bf16 on the card, under for_gatekeeper(). With `PathCopies`
+    entered around it (launch counts set to 0 before and read after; one
+    descent launch per simulation run, two searches of 150 simulations a
+    ply): the wall, games/s, plies until every game ended, searched visits/s
+    (every game of both halves searched at every ply) and the same counting
+    live games only, the tally, the decision and where the candidate
+    landed; every SGF replayed legally to its winner; then both kernels held
+    to their plain versions on the copies and timed; then a short profile
+    of a fresh B=100 search under for_gatekeeper() (launches and host syncs
+    a playout, device busy share)."""
+    import os
+
+    import torch
+
+    from katacoffee_tpu_torch.command import gatekeeper as command
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.game.board import init_state
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.utils.config import ConfigParser
+
+    base = os.path.join(root, "gate")
+    cand, champ = os.path.basename(MODEL_DIR), os.path.basename(CHAMPION_DIR)
+    shutil.copytree(CHAMPION_DIR, os.path.join(base, "models", champ))
+    shutil.copytree(MODEL_DIR, os.path.join(base, "modelstobetested", cand))
+    c = ConfigParser(GATE_CFG)
+    visits, required = c.get_int("maxVisits"), c.get_float("requiredCandidateWinProp")
+    kept = command.run_match
+    matches = []
+
+    def timed_match(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        result = kept(*args, **kwargs)
+        torch.cuda.synchronize()
+        matches.append((result, time.monotonic() - t))
+        return result
+
+    command.run_match = timed_match
+    try:
+        with PathCopies(snapshot_every) as copies:
+            t = time.monotonic()
+            command.main(["-base-dir", base, "-config", GATE_CFG, "-quit-if-no-candidates"], device=dev)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t
+    finally:
+        command.run_match = kept
+    if len(matches) != 1:
+        raise AssertionError(f"the gatekeeper played {len(matches)} matches, not 1")
+    result, match_s = matches[0]
+    B, plies = result.games, len(result.live_per_ply)
+    searched, live = B * visits * plies, visits * sum(result.live_per_ply)
+    landed = [d for d in ("models", "rejectedmodels") if os.path.isdir(os.path.join(base, d, cand))]
+    promoted = result.score_a >= required
+    log(f"gatekeeper (a), configs/gatekeeper.cfg: {cand} (candidate) vs {champ}, {B} games at {visits} visits, b6c96 "
+        f"bf16: {result.wins_a}-{result.wins_b}-{result.draws} (score {result.score_a:.3f}), "
+        f"{'promoted' if promoted else 'rejected'}, landed in {landed}; command wall {wall:.3f} s, match {match_s:.3f} s, "
+        f"{B / match_s:.3f} games/s; {plies} plies until every game ended (live games at each ply "
+        f"{result.live_per_ply}); searched visits/s {searched / match_s:.1f} (every game searched), "
+        f"{live / match_s:.1f} (live games only)")
+    log(f"  launches in the gating run: descend_interior {copies.launches['descend_interior']} for {copies.sims} "
+        f"simulations run (by batch width {dict(copies.descent_calls)}); gather_rows {copies.launches['gather_rows']} "
+        f"(shapes {sorted(copies.gathers)})")
+    copies.check_launches("the gatekeeper", B // 2)
+    if copies.sims != 2 * visits * plies:
+        raise AssertionError(f"{copies.sims} simulations run, not two searches of {visits} a ply over {plies} plies")
+    if landed != ["models" if promoted else "rejectedmodels"] or os.listdir(os.path.join(base, "modelstobetested")):
+        raise AssertionError(f"the candidate landed in {landed} after a score of {result.score_a}")
+    sgf_dir = os.path.join(base, "gatekeepersgfs", cand)
+    games = replay_sgfs(cfg, sorted(os.path.join(sgf_dir, n) for n in os.listdir(sgf_dir)), dev)
+    if games != B:
+        raise AssertionError(f"{games} SGFs replayed for {B} games")
+    log(f"  {games} SGFs, each replays legally to its winner")
+    checked = copies.check("gatekeeper (a)", cfg)
+
+    net = load_exported_model(MODEL_DIR, dev)[0]
+    evaluate = mcts.make_nn_eval_fn(cfg, net)
+    roots = init_state(cfg, B // 2, dev)
+
+    def search(wrap=lambda name, fn: fn):
+        mcts.run_search(cfg, SearchParams.for_gatekeeper(), wrap("net", evaluate), roots, profile_sims, device=dev)
+        torch.cuda.synchronize()
+
+    prof = phase_profile(dev, f"gatekeeper B={B // 2} fresh", search, profile_sims)
+    return {"games": B, "visits": visits, "wall_s": wall, "match_s": match_s, "games_per_s": B / match_s,
+            "plies": plies, "live_per_ply": result.live_per_ply, "searched_vps": searched / match_s,
+            "live_vps": live / match_s, "wins_a": result.wins_a, "wins_b": result.wins_b, "draws": result.draws,
+            "score_a": result.score_a, "promoted": promoted, "landed": landed[0], "launches": copies.launches,
+            "sims": copies.sims, **checked, "gather_shape": next(iter(checked["gather"])), "profile": prof}
+
+
+def phase_gate_card_vs_cpu(dev, cfg, games=8, visits=32):
+    """The card against the CPU: a float32 gating match (run-s5200 against
+    run-s4800, for_gatekeeper()) of `games` games at `visits` visits with
+    the same injected Gumbel draws on both. The move records must be equal;
+    a game that parts is printed with its ply and passes only where the
+    CPU's two best sampling scores (log weight over temperature plus the
+    Gumbel noise, `chosen_move_logits`) there lie within NEAR_TIE
+    (relative)."""
+    import math
+
+    import torch
+
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.program import match
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    sp = SearchParams.for_gatekeeper()
+    half = games // 2
+    g = torch.Generator().manual_seed(8)
+    table = {(ply, h): -torch.log(torch.empty((half, cfg.policy_size)).exponential_(generator=g))
+             for ply in range(cfg.area + 2) for h in (0, 1)}
+    kept = match.select_moves
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        at, scores = [None], {}
+
+        def draws(ply, h):
+            at[0] = (ply, h)
+            return table[ply, h]
+
+        def recording(cfg_, sp_, tree, generator=None, gumbel=None, turn_number=None):
+            _, logits, _ = mcts.chosen_move_logits(cfg_, sp_, tree, turn_number)
+            scores[at[0]] = (logits + gumbel.to(logits.device)).cpu()
+            return kept(cfg_, sp_, tree, generator=generator, gumbel=gumbel, turn_number=turn_number)
+
+        evals = [mcts.make_nn_eval_fn(cfg, load_exported_model(m, d, torch.float32)[0]) for m in (MODEL_DIR,
+                                                                                                 CHAMPION_DIR)]
+        match.select_moves = recording
+        # the CPU's ops here are on [4, ...] tensors: one thread beats a pool
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1 if d.type == "cpu" else threads)
+        t = time.monotonic()
+        try:
+            result = match.run_match(cfg, sp, sp, *evals, num_games=games, num_visits=visits, record_moves=True,
+                                     device=d, draws=draws)
+        finally:
+            match.select_moves = kept
+            torch.set_num_threads(threads)
+        runs.append((result, scores, time.monotonic() - t))
+    (rk, _, tk), (rc, scores, tc) = runs
+    parted = []
+    for gi in range(games):
+        a, b = rk.move_records[gi], rc.move_records[gi]
+        if a == b:
+            continue
+        t = next(i for i in range(min(len(a), len(b)) + 1) if i == min(len(a), len(b)) or a[i] != b[i])
+        key = (t, gi // half)
+        top = torch.topk(scores[key][gi % half], 2).values.tolist() if key in scores else [math.inf, -math.inf]
+        near = top[0] - top[1] <= NEAR_TIE * max(1.0, abs(top[0]))
+        log(f"  card vs cpu: game {gi} parts at ply {t}; the cpu's two best sampling scores {top[0]:.7g}, {top[1]:.7g}")
+        parted.append((gi, t, near))
+    log(f"gatekeeper (b) card vs cpu, {games} games at {visits} visits float32, same draws: move records equal in "
+        f"{games - len(parted)} of {games} games; tallies {rk.wins_a}-{rk.wins_b}-{rk.draws} / {rc.wins_a}-{rc.wins_b}-"
+        f"{rc.draws}; card {tk:.1f} s, cpu {tc:.1f} s")
+    if not all(near for _, _, near in parted):
+        raise AssertionError("card and cpu gating matches part where the sampling scores are not a near tie")
+    if not parted and (rk.wins_a, rk.wins_b, rk.draws) != (rc.wins_a, rc.wins_b, rc.draws):
+        raise AssertionError("card and cpu play the same games and tally them differently")
+    return {"games": games, "parted": len(parted), "card_s": tk, "cpu_s": tc}
+
+
+def phase_loop(dev, cfg, root, rows=1000, batch=64, visits=16, moves=6, steps=20, gate_games=16, gate_visits=16):
+    """One cycle of `command.loop.run_loop` at reduced depth on a base dir
+    under `root` whose models/ holds run-s5200 and whose train/run/ holds the
+    flagship checkpoint (step 5200): selfplay B=`batch` at `visits` visits,
+    `moves`-move segments, until `rows` rows (the first flush comes after 4
+    segments, by when every game has ended), the shuffle, `steps` b6c96 train steps at B=`batch`,
+    the export, and a gate of `gate_games` games at `gate_visits` visits.
+    Checks the shards (read back), the shuffled chunks, the checkpoint's
+    step, the export gated into models/ or rejectedmodels/, and its gating
+    SGFs replayed."""
+    import os
+
+    import torch
+
+    from katacoffee_tpu_torch.command import loop
+    from katacoffee_tpu_torch.dataio import checkpoints as ckpt
+
+    base = os.path.join(root, "loop")
+    model = os.path.basename(MODEL_DIR)
+    shutil.copytree(MODEL_DIR, os.path.join(base, "models", model))
+    ckpt_path = os.path.join(base, "train", "run", "checkpoint.ckpt")
+    os.makedirs(os.path.dirname(ckpt_path))
+    shutil.copy(FLAGSHIP_CKPT, ckpt_path)
+    start = ckpt.read_raw(ckpt_path)[0]["train_step"]
+    lc = loop.LoopConfig(num_cycles=1, rows_per_cycle=rows, selfplay_batch=batch, selfplay_visits=visits,
+                         moves_per_segment=moves, train_steps_per_cycle=steps, train_batch=batch, model="b6c96", gate_games=gate_games,
+                         gate_visits=gate_visits, seed=0)
+    t = time.monotonic()
+    loop.run_loop(base, cfg, lc, device=dev)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    got, _ = read_daemon_rows(cfg, base, model, dev)
+    shuffled = [n for n in os.listdir(os.path.join(base, "shuffleddata")) if n.endswith(".npz")]
+    step = ckpt.read_raw(ckpt_path)[0]["train_step"]
+    export = f"run-s{start + steps}"
+    landed = [d for d in ("models", "rejectedmodels") if os.path.isdir(os.path.join(base, d, export))]
+    sgf_dir = os.path.join(base, "gatekeepersgfs", export)
+    sgfs = sorted(os.path.join(sgf_dir, n) for n in os.listdir(sgf_dir)) if os.path.isdir(sgf_dir) else []
+    ok = (got["weight"].shape[0] >= rows and shuffled and step == start + steps and len(landed) == 1
+          and not os.listdir(os.path.join(base, "modelstobetested")) and len(sgfs) == gate_games)
+    if not ok:
+        raise AssertionError(f"loop cycle: {got['weight'].shape[0]} rows, shuffled {shuffled}, checkpoint step {step}, "
+                             f"{export} in {landed}, {len(sgfs)} gating SGFs")
+    replay_sgfs(cfg, sgfs, dev)
+    log(f"gatekeeper (c) the loop, one cycle: selfplay B={batch} {visits} visits wrote {got['weight'].shape[0]} rows, "
+        f"shuffled into {shuffled}, {steps} b6c96 B={batch} train steps from step {start} to {step}, {export} gated "
+        f"({gate_games} games at {gate_visits} visits) into {landed[0]}, its SGFs replayed; {wall:.1f} s")
+    return {"wall_s": wall, "rows": int(got["weight"].shape[0]), "export": export, "landed": landed[0]}
+
+
 PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_lookup", "_bias_keys", "_bias_avg",
             "_root_eval", "_tree_from_root_eval", "advance_root")
 
@@ -1662,7 +1940,7 @@ def phase_profile(dev, label, search, sims=20):
             "by_phase": {k: v / sims for k, v in by_phase.items()}}
 
 
-def profile_searches(dev, cfg, reused_tree, batch=512, sims=20, pairs=5):
+def profile_searches(dev, cfg, reused_tree, batch=512, sims=10, pairs=5):
     """Profiles of `sims` playouts at B=512 b6c96: a fresh search from the
     empty board under the default and the selfplay profile, the selfplay
     one again with the selfplay command's evaluator (a random symmetry per
@@ -1765,32 +2043,38 @@ def main() -> int:
     try:
         log("phase 6: the selfplay command")
         command = phase_selfplay_command(dev, cfg, work)
-        log("phase 7: the trainer (this slice's main path), on phase 6's shards")
+        log("phase 7: the trainer, on phase 6's shards")
         trainer = phase_trainer(dev, cfg, command["rows_dir"], positions, work)
+        log("phase 8: the gatekeeper (this slice's main path), card against CPU, and one loop cycle")
+        gate = phase_gatekeeper(dev, cfg, work)
+        gate["card_vs_cpu"] = phase_gate_card_vs_cpu(dev, cfg)
+        gate["loop"] = phase_loop(dev, cfg, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    log("phase 8: profiles")
+    log("phase 9: profiles")
     profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
     ab = profiles.pop("randomization_ab")
     log("per playout: cudaLaunchKernel " + ", ".join(
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
-    # the kernels line reports the kernels' path (phase 6 (a)): its launches,
-    # and each kernel's check and times on the inputs that path gave it;
-    # the trainer's path (phase 7) launches neither
-    shape = command["gather_shape"]
-    t = command["gather"][shape]
+    # the kernels line reports the main path (phase 8 (a), the gatekeeper):
+    # its launches, and each kernel's check and times on the inputs that
+    # path gave it; the earlier paths' launches and times beside them (the
+    # trainer's path, phase 7, launches neither)
+    shape = gate["gather_shape"]
+    t = gate["gather"][shape]
     gather_entry = {
         "name": "gather_rows",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/gather_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
-        "launches": command["launches"]["gather_rows"],
+        "launches": gate["launches"]["gather_rows"],
+        "launches_selfplay_command_path": command["launches"]["gather_rows"],
         "launches_segment_path": selfplay["launches"]["gather_rows"],
         "launches_trainer_path": trainer["kernel_launches"]["gather_rows"],
-        "max_abs_err": max(kern["max_abs_err"], command["gather_max_abs_err"]),
+        "max_abs_err": max(kern["max_abs_err"], command["gather_max_abs_err"], gate["gather_max_abs_err"]),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
@@ -1801,22 +2085,26 @@ def main() -> int:
         "launches_default_path": search["launches"]["gather_rows"],
         "launches_per_search_default_path": search["per_search"]["gather_rows"],
         "other_shapes": {
-            **{f"selfplay command {list(s)}": v for s, v in command["gather"].items() if s != shape},
+            **{f"gatekeeper {list(s)}": v for s, v in gate["gather"].items() if s != shape},
+            **{f"selfplay command {list(s)}": v for s, v in command["gather"].items()},
             **{f"random inputs {list(s)}": v for s, v in kern["timings"].items()},
         },
     }
-    timed = command["descent"][shape[0]]
+    timed = gate["descent"][shape[0]]
     descend_entry = {
         "name": "descend_interior",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/descend_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
         "also_replaces": "katacoffee_tpu/search/mcts.py:1267",
-        "launches": command["launches"]["descend_interior"],
+        "launches": gate["launches"]["descend_interior"],
+        "simulations_run_gatekeeper": gate["sims"],
+        "launches_selfplay_command_path": command["launches"]["descend_interior"],
         "simulations_run_selfplay_command": command["sims"],
         "launches_segment_path": selfplay["launches"]["descend_interior"],
         "launches_trainer_path": trainer["kernel_launches"]["descend_interior"],
-        "max_abs_err": max(desc["max_abs_err"], *(v["max_abs_err"] for v in command["descent"].values())),
+        "max_abs_err": max(desc["max_abs_err"], *(v["max_abs_err"] for path in (command, gate)
+                                                  for v in path["descent"].values())),
         "ms": timed["ms"],
         "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"],
@@ -1825,36 +2113,45 @@ def main() -> int:
         "shape": timed["shape"],
         "timed_levels": timed["timed_levels"],
         "other_trees": {
-            **{f"selfplay command B={b}": v for b, v in command["descent"].items() if b != shape[0]},
+            **{f"gatekeeper B={b}": v for b, v in gate["descent"].items() if b != shape[0]},
+            **{f"selfplay command B={b}": v for b, v in command["descent"].items()},
             **{f"grown {k} tree B=512": v for k, v in desc["timed"].items()},
         },
         "simulations_run_segment_path": selfplay["sims"],
         "launches_default_path": search["launches"]["descend_interior"],
-        "near_tie_flips": desc["flips"] + sum(v["flips"] for v in command["descent"].values()),
-        "games_compared": desc["games"] + sum(v["games"] for v in command["descent"].values()),
-        "levels_compared": desc["levels"] + sum(v["levels_compared"] for v in command["descent"].values()),
+        "near_tie_flips": desc["flips"] + sum(v["flips"] for p in (command, gate) for v in p["descent"].values()),
+        "games_compared": desc["games"] + sum(v["games"] for p in (command, gate) for v in p["descent"].values()),
+        "levels_compared": desc["levels"] + sum(v["levels_compared"] for p in (command, gate)
+                                                for v in p["descent"].values()),
         "ab_identical_games": search["ab_identical"],
         "ab_games": search["ab_games"],
         "ab_max_tv": search["ab_tv"],
         "selfplay_finishing_games_identical_fields": finishing["identical_fields"],
         "selfplay_finishing_games": finishing["games"],
         "selfplay_card_vs_cpu_parted_games": card_cpu["parted"],
+        "gatekeeper_card_vs_cpu_parted_games": gate["card_vs_cpu"]["parted"],
     }
-    # plies 3-4 in both: phase 5's first timed segment (B=512, plain
-    # evaluator) and the command's second segment (B=256, randomizing)
+    # phase 5's timed segment (plies 3-4, B=512, plain evaluator) and the
+    # command's segment (plies 1-2, B=256, randomizing)
     per_sim = [selfplay["segment_walls"][0] / selfplay["segment_sims"] * 1e3,
-               command["segment_walls"][1] / command["segment_sims"] * 1e3]
+               command["segment_walls"][0] / command["segment_sims"] * 1e3]
     own = [r["own_s"] / r["wall_s"] for r in command["rows_runs"]]
-    log(f"phase 9: done; default B=512 600-visit search {search['vps']:.1f} visits/s; {SELFPLAY_METRIC} "
+    log(f"phase 10: done; gatekeeper {gate['games']} games at {gate['visits']} visits in {gate['match_s']:.3f} s "
+        f"({gate['games_per_s']:.3f} games/s, {gate['searched_vps']:.1f} searched visits/s, {gate['plies']} plies), "
+        f"{gate['wins_a']}-{gate['wins_b']}-{gate['draws']}, candidate {gate['landed']}; loop cycle "
+        f"{gate['loop']['wall_s']:.1f} s, {gate['loop']['export']} into {gate['loop']['landed']}; default B=512 600-visit search {search['vps']:.1f} visits/s; {SELFPLAY_METRIC} "
         f"{selfplay['delivered_vps']:.1f} (fresh move {selfplay['fresh_move_ms']:.1f} ms, reused move "
         f"{selfplay['reused_move_ms']:.1f} ms); side segment {branches['side_s']:.3f} s; selfplay command "
         f"{command['delivered_vps']:.1f} visits/s over its segments, {command['outside_s']:.3f} s outside them; "
-        f"plies 3-4, ms a simulation: B=512 segment {per_sim[0]:.2f}, the command's B=256 segment {per_sim[1]:.2f}; "
+        f"ms a simulation: B=512 segment (plies 3-4) {per_sim[0]:.2f}, the command's B=256 segment (plies 1-2) "
+        f"{per_sim[1]:.2f}; "
         f"the daemon's own work in the rows runs " + ", ".join(f"{x:.2%}" for x in own) + " of the wall; "
         f"randomized evaluator {ab['randomized_ms'] / ab['plain_ms'] - 1:+.2%} on a fresh search; trainer "
         f"{trainer['ms_per_step_median']:.3f} ms a b6c96 B=256 step, {trainer['samples_per_s']:.1f} samples/s")
     print(card_line(), flush=True)
     print(json.dumps({"trainer": trainer}), flush=True)
+    print(json.dumps({"gatekeeper": {k: v for k, v in gate.items() if k not in ("gather", "descent")}},
+                     default=str), flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)
     print(json.dumps({
         "ok": True,

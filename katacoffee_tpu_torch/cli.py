@@ -1,7 +1,8 @@
 """Subcommand dispatch for the port, `python -m katacoffee_tpu_torch <cmd>`
 (the JAX package's `katacoffee_tpu/cli.py`). The ported subcommands are
-`selfplay`, `shuffle`, `train`, `validate` and `checkpoint`; any other exits
-non-zero and says so."""
+`selfplay`, `shuffle`, `train`, `validate`, `checkpoint`, `gatekeeper`,
+`match`, `loop`, `summarize_sgfs` and `benchmark`; any other exits non-zero
+and says so."""
 
 from __future__ import annotations
 
@@ -26,9 +27,26 @@ Usage: python -m katacoffee_tpu_torch <subcommand> [args]
                loss metrics of an exported model over training rows
   checkpoint dump|edit|export ...
                inspect, edit or export a trainer checkpoint
+  gatekeeper -base-dir DIR [-config FILE] [-override-config k=v,...]
+             [-quit-if-no-candidates]
+               candidate-vs-champion gating on the GPU: DIR/modelstobetested
+               -> DIR/models or DIR/rejectedmodels, SGFs in DIR/gatekeepersgfs
+  match MODEL_DIR|random ... [-games-per-pair N] [-visits V] [-sgf-dir D]
+        [-seed S]
+               round-robin matches between exported models, MLE Elos
+  loop -base-dir DIR [-config FILE] [-override-config k=v,...]
+               the synchronous selfplay -> shuffle -> train -> gate loop
+  summarize_sgfs SGF_DIR... [-prior-games G] [-no-validate]
+               tally SGF results (replayed on the GPU) and fit MLE Elos
+  benchmark [-model MODEL_DIR] [-visits V] [-batch-sizes 1,16,64,256]
+               search visits/s over game-batch sizes
 
 Every other subcommand of `python -m katacoffee_tpu` is not ported yet.
 """
+
+
+# subcommands whose command module's main(argv) runs them
+_COMMANDS = ("gatekeeper", "match", "loop", "summarize_sgfs", "benchmark")
 
 
 def _shuffle(args: list[str]) -> int:
@@ -76,6 +94,11 @@ def main(argv: list[str] | None = None) -> int:
         from katacoffee_tpu_torch.command.checkpoint import main as checkpoint_main
 
         return checkpoint_main(args)
+    if cmd in _COMMANDS:
+        import importlib
+
+        importlib.import_module(f"katacoffee_tpu_torch.command.{cmd}").main(args)
+        return 0
     print(f"katacoffee_tpu_torch: {cmd} is not ported (or unknown); python -m katacoffee_tpu {cmd} runs the JAX "
           f"package's\n\n{_HELP}", file=sys.stderr)
     return 2

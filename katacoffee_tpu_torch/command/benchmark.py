@@ -1,5 +1,6 @@
 """Benchmark: search visits/s over batch sizes, the port of
-`katacoffee_tpu/command/benchmark.py` `benchmark_search`.
+`katacoffee_tpu/command/benchmark.py` (`benchmark_search` and the
+`benchmark` subcommand's `main`).
 
 The parallelism axis is the game batch size B; the number reported is
 NN-evaluated playouts per second. The first search per batch size is a
@@ -34,23 +35,25 @@ def benchmark_search(
     reps: int = 3,
     device: str | torch.device | None = None,
     log=print,
+    generator: torch.Generator | None = None,
 ) -> dict:
     """Returns {batch_size: visits_per_second} for fresh-tree searches of
     `num_visits` playouts from the initial position, on `device` (default
     `cuda`). Each rate is B * num_visits over the mean wall time of `reps`
-    searches, timed between device synchronizations."""
+    searches, timed between device synchronizations. A profile that draws
+    at the root (noise, sampled symmetries) draws from `generator`."""
     dev = resolve_device(device)
     results = {}
     for B in batch_sizes:
         states = init_state(cfg, B, dev)
         t0 = time.monotonic()
-        float(run_search(cfg, sp, eval_fn, states, num_visits, device=dev).stats.sum())
+        float(run_search(cfg, sp, eval_fn, states, num_visits, device=dev, generator=generator).stats.sum())
         warmup_s = time.monotonic() - t0
         total = torch.zeros((), device=dev)
         _sync(dev)
         t0 = time.monotonic()
         for _ in range(reps):
-            total += run_search(cfg, sp, eval_fn, states, num_visits, device=dev).stats.sum()
+            total += run_search(cfg, sp, eval_fn, states, num_visits, device=dev, generator=generator).stats.sum()
         float(total)
         _sync(dev)
         dt = (time.monotonic() - t0) / reps
@@ -62,3 +65,33 @@ def benchmark_search(
     best = max(results, key=results.get)
     log(f"best: batch {best} at {results[best]:.1f} visits/s")
     return results
+
+
+def main(argv, *, device: str | torch.device | None = None) -> dict:
+    """Entry for `python -m katacoffee_tpu_torch benchmark` (JAX
+    benchmark.py:69): the same arguments, under the selfplay profile, on
+    `device` (default `cuda`). Returns what benchmark_search returns."""
+    import argparse
+
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.search.mcts import make_nn_eval_fn, uniform_eval_fn
+
+    dev = resolve_device(device)
+    ap = argparse.ArgumentParser(prog="katacoffee_tpu_torch benchmark")
+    ap.add_argument("-model", default=None, help="exported model dir (default: uniform priors)")
+    ap.add_argument("-visits", type=int, default=200)
+    ap.add_argument("-batch-sizes", default="1,16,64,256")
+    args = ap.parse_args(argv)
+
+    cfg = GameConfig(5, 5, 4)
+    if args.model:
+        model, cfg, meta = load_exported_model(args.model, device=dev)
+        eval_fn = make_nn_eval_fn(cfg, model)
+        print(f"model: {meta['name']}")
+    else:
+        eval_fn = uniform_eval_fn(cfg)
+        print("model: none (uniform priors)")
+    sp = SearchParams.for_selfplay()
+    sizes = tuple(int(s) for s in args.batch_sizes.split(","))
+    return benchmark_search(cfg, sp, eval_fn, batch_sizes=sizes, num_visits=args.visits, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))

@@ -16,7 +16,11 @@ What the port implements (file:line cites are the JAX package's):
     (`_select_action`, :1030), and its compact-lane form for interior nodes
     (`_selection_compact`, from `_select_action_compact`, :712);
   * the evaluator (`make_nn_eval_fn`, :359), with a random symmetry per
-    evaluated row where `symmetry_randomize` is set;
+    evaluated row where `symmetry_randomize` is set, and its optimistic
+    policy (`policy_opt`), which policyOptimism / rootPolicyOptimism blend
+    into new nodes' and the root's priors (`_blend_policy`, :499);
+  * uncertainty-weighted evaluations (useUncertainty: `_eval_weight`, :514),
+    so node weights are fractional;
   * the root prior (`_make_root_prior`, :938): the early-game policy
     temperature, Dirichlet noise and the hint's 2 % shift; the root
     evaluation averaged over sampled symmetries (`_root_eval`, :442);
@@ -120,6 +124,10 @@ class EvalResult(NamedTuple):
     wl: torch.Tensor  # [B] win minus loss
     draw: torch.Tensor  # [B]
     shortterm_error: torch.Tensor  # [B]
+    # the optimistic policy head's probabilities [B, A], or None where the
+    # evaluator has none; the search blends them in per policyOptimism /
+    # rootPolicyOptimism (`_blend_policy`)
+    policy_opt: torch.Tensor | None = None
 
 
 EvalFn = Callable[[GameState], EvalResult]
@@ -146,9 +154,6 @@ class RootDraws(NamedTuple):
 def _check_supported(sp: SearchParams) -> None:
     unsupported = {
         "useNoisePruning": sp.useNoisePruning,
-        "useUncertainty": sp.useUncertainty,
-        "policyOptimism!=0": sp.policyOptimism != 0.0,
-        "rootPolicyOptimism!=0": sp.rootPolicyOptimism != 0.0,
         "rootSymmetryPruning": sp.rootSymmetryPruning,
         "numSearchThreads>1": sp.numSearchThreads > 1,
         "graphSearchCatchUpLeakProb>0": sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0,
@@ -195,13 +200,17 @@ def uniform_eval_fn(cfg: GameConfig) -> EvalFn:
 def make_nn_eval_fn(
     cfg: GameConfig,
     model,
+    policy_optimism: float = 0.0,
     symmetry_randomize: bool = False,
     generator: torch.Generator | None = None,
     draw_syms: Callable[[int], torch.Tensor] | None = None,
 ) -> EvalFn:
     """Wrap a CoffeeNet into an EvalFn: features, forward, softmax of the
-    policy over legal moves, utility = P(win) - P(loss). The states must lie
-    on the model's device.
+    policy over legal moves, utility = P(win) - P(loss), and the softmax of
+    the optimistic policy head as `policy_opt`. The states must lie on the
+    model's device. `policy_optimism` > 0 blends the optimistic logits into
+    the policy's linearly (the JAX package's eval-level knob; the search's
+    policyOptimism / rootPolicyOptimism blend `policy_opt` per node instead).
 
     `symmetry_randomize` evaluates each row under a random dihedral symmetry
     and inverts it on the policy logits (the reference NNEvaluator's
@@ -226,15 +235,19 @@ def make_nn_eval_fn(
             inv = S.invert(syms)
             for k in ("policy_logits", "optimistic_policy_logits"):
                 out[k] = S.apply_policy(cfg, inv, out[k])
+        logits = out["policy_logits"]
+        if policy_optimism > 0.0:
+            logits = (1.0 - policy_optimism) * logits + policy_optimism * out["optimistic_policy_logits"]
         legal = legal_mask_flat(cfg, states)
         probs = _softmax(out["value_logits"])
         utility = probs[:, 0] - probs[:, 1]
         return EvalResult(
-            policy=_masked_softmax(out["policy_logits"], legal),
+            policy=_masked_softmax(logits, legal),
             utility=utility,
             wl=utility,
             draw=probs[:, 2],
             shortterm_error=out["shortterm_error"],
+            policy_opt=_masked_softmax(out["optimistic_policy_logits"], legal),
         )
 
     return fn
@@ -251,7 +264,8 @@ def _root_eval(cfg, sp: SearchParams, eval_fn: EvalFn, states: GameState, genera
     """Root evaluation under rootNumSymmetriesToSample = k: k distinct
     dihedral symmetries per game (`syms` [B, k], else the first k of a
     random permutation drawn from `generator`), the root evaluated under
-    each, each policy transformed back, and every output averaged."""
+    each, both policies transformed back, and every output averaged (a None
+    `policy_opt` stays None)."""
     k = min(int(sp.rootNumSymmetriesToSample), S.num_symmetries(cfg))
     if k <= 1:
         return eval_fn(states)
@@ -265,9 +279,12 @@ def _root_eval(cfg, sp: SearchParams, eval_fn: EvalFn, states: GameState, genera
     for j in range(k):
         sym = syms[:, j].to(states.board.device)
         res = eval_fn(S.apply_state(cfg, sym, states))
-        res = res._replace(policy=S.apply_policy(cfg, S.invert(sym), res.policy))
-        acc = res if acc is None else EvalResult(*(a + b for a, b in zip(acc, res)))
-    return EvalResult(*(a / k for a in acc))
+        inv = S.invert(sym)
+        res = res._replace(policy=S.apply_policy(cfg, inv, res.policy))
+        if res.policy_opt is not None:
+            res = res._replace(policy_opt=S.apply_policy(cfg, inv, res.policy_opt))
+        acc = res if acc is None else EvalResult(*(None if a is None else a + b for a, b in zip(acc, res)))
+    return EvalResult(*(None if a is None else a / k for a in acc))
 
 
 # ---------------------------------------------------------------------------
@@ -275,10 +292,34 @@ def _root_eval(cfg, sp: SearchParams, eval_fn: EvalFn, states: GameState, genera
 # ---------------------------------------------------------------------------
 
 
+def _blend_policy(res: EvalResult, optimism: float) -> torch.Tensor:
+    """policyOptimism (searchparams.h:30; JAX `_blend_policy`, mcts.py:499):
+    the normalized geometric interpolation of the raw and optimistic
+    policies, which equals blending the two heads' logits linearly before
+    the softmax. The raw policy where the evaluator has no optimistic head
+    or the optimism is 0."""
+    if res.policy_opt is None or optimism == 0.0:
+        return res.policy
+    lp = torch.log(res.policy.clamp(min=1e-30))
+    lo = torch.log(res.policy_opt.clamp(min=1e-30))
+    b = torch.where(res.policy > 0, torch.exp((1.0 - optimism) * lp + optimism * lo), 0.0)
+    return b / b.sum(-1, keepdim=True).clamp(min=1e-30)
+
+
 def _eval_weight(sp: SearchParams, shortterm_error: torch.Tensor) -> torch.Tensor:
-    """computeWeightFromNNOutput with uncertainty weighting off (useUncertainty
-    is refused by _check_supported): weight 1."""
-    return torch.ones_like(shortterm_error)
+    """computeWeightFromNNOutput (searchupdatehelpers.cpp:103-121; JAX
+    mcts.py:514): with useUncertainty, uncertaintyCoeff over the scaled
+    short-term error plus uncertaintyCoeff / uncertaintyMaxWeight, so at
+    most uncertaintyMaxWeight; else 1."""
+    if not sp.useUncertainty:
+        return torch.ones_like(shortterm_error)
+    err = sp.winLossUtilityFactor * shortterm_error
+    if sp.uncertaintyExponent != 1.0:
+        err = torch.pow(err.clamp(min=0.0), sp.uncertaintyExponent)
+    baseline = sp.uncertaintyCoeff / sp.uncertaintyMaxWeight
+    # a true division, as JAX's (torch's scalar / tensor multiplies by the
+    # reciprocal)
+    return torch.full_like(err, sp.uncertaintyCoeff) / (err + baseline)
 
 
 def _terminal_utility(states: GameState) -> torch.Tensor:
@@ -576,8 +617,9 @@ def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameSta
 
     states = root_states.map(lambda x: x[:, None].expand((B, N) + x.shape[1:]).clone())
     legal = legal_mask_flat(cfg, root_states)
-    raw_prior = torch.where(legal, res.policy, -1.0)
-    root_prior = _make_root_prior(cfg, sp, res.policy, legal, root_states, generator, gamma, turn_number,
+    root_policy = _blend_policy(res, sp.rootPolicyOptimism)
+    raw_prior = torch.where(legal, root_policy, -1.0)
+    root_prior = _make_root_prior(cfg, sp, root_policy, legal, root_states, generator, gamma, turn_number,
                                   root_hint)
 
     root_term = root_states.done
@@ -820,7 +862,7 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     new_terminal = new_states.done
     term_util = _terminal_utility(new_states)
     legal = legal_mask_flat(cfg, new_states)
-    new_prior = torch.where(legal, res.policy, -1.0)
+    new_prior = torch.where(legal, _blend_policy(res, sp.policyOptimism), -1.0)
     u_raw = torch.where(new_terminal, term_util, res.utility)
     wl_new = torch.where(new_terminal, term_util, res.wl)
     d_new = torch.where(new_terminal, (new_states.winner == 0).to(torch.float32), res.draw)
@@ -1345,6 +1387,22 @@ def select_moves(cfg: GameConfig, sp: SearchParams, tree: Tree, generator: torch
     the noise [B, A] is `gumbel`, else drawn from `generator`. A near-zero
     temperature takes the greedy move; a game with no weighted child takes
     the highest root prior."""
+    legal = tree.root_prior >= 0
+    v, logits, temp = chosen_move_logits(cfg, sp, tree, turn_number)
+    if gumbel is None:
+        g = _need_generator(generator, "select_moves")
+        gumbel = -torch.log(torch.empty(v.shape, device=v.device).exponential_(generator=g))
+    sampled = torch.argmax(logits + gumbel.to(v.device), dim=-1)
+    choice = torch.where(temp <= 1e-3, torch.argmax(v, dim=-1), sampled)
+    fallback = torch.argmax(torch.where(legal, tree.root_prior, -math.inf), dim=-1)
+    return torch.where((v > 0).any(-1), choice, fallback)
+
+
+@torch.no_grad()
+def chosen_move_logits(cfg: GameConfig, sp: SearchParams, tree: Tree, turn_number: torch.Tensor | None = None):
+    """What `select_moves` samples from: (v [B, A] the pruned play-selection
+    values, logits [B, A] = log(v) / temperature, -inf where v is 0, and the
+    temperature [B])."""
     A = tree.children.shape[-1]
     legal = tree.root_prior >= 0
     cs = _root_child_stats(tree)
@@ -1377,13 +1435,7 @@ def select_moves(cfg: GameConfig, sp: SearchParams, tree: Tree, generator: torch
     v = torch.where(w_sel < sp.chosenMovePrune, 0.0, v)
     v = torch.where(legal, v, 0.0)
     logits = torch.where(v > 0, torch.log(v.clamp(min=1e-30)) / temp[:, None], -math.inf)
-    if gumbel is None:
-        g = _need_generator(generator, "select_moves")
-        gumbel = -torch.log(torch.empty(v.shape, device=v.device).exponential_(generator=g))
-    sampled = torch.argmax(logits + gumbel.to(v.device), dim=-1)
-    choice = torch.where(temp <= 1e-3, torch.argmax(v, dim=-1), sampled)
-    fallback = torch.argmax(torch.where(legal, tree.root_prior, -math.inf), dim=-1)
-    return torch.where((v > 0).any(-1), choice, fallback)
+    return v, logits, temp
 
 
 @torch.no_grad()

@@ -2,10 +2,11 @@
 whole with the same names and defaults (the reference's knob names,
 searchparams.cpp:8-92), `for_*` constructors included.
 
-The port's search runs `SearchParams()` and `SearchParams.for_selfplay()`;
-`search/mcts.py` raises NotImplementedError for the settings it does not
-take yet (noise pruning, uncertainty weighting, policy optimism, root
-symmetry pruning, several search threads, a catch-up leak).
+The port's search runs `SearchParams()`, `SearchParams.for_selfplay()`,
+`for_gatekeeper()` and `for_match()` (uncertainty weighting and policy
+optimism included); `search/mcts.py` raises NotImplementedError for the
+settings it does not take yet (noise pruning, root symmetry pruning,
+several search threads, a catch-up leak).
 """
 
 from __future__ import annotations

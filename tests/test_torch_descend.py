@@ -8,8 +8,10 @@ constants, the first maximum on ties, and its stop and record rules) and held
 to the plain version on trees taken mid-search: 5x5 with a tiny net (C = 20
 candidate lanes) and 9x9 with the uniform evaluator (C = 36, more lanes than
 a warp has threads), under three selection profiles and a depth cap, and
-under the selfplay profile on trees that graph search built, with
-transpositions, where descents stop at edge-visit catch-ups. Leaf, depth,
+under the selfplay and gatekeeper profiles on trees that graph search
+built, with transpositions, where descents stop at edge-visit catch-ups
+(the gatekeeper's with fractional S_W rows from uncertainty weighting,
+optimistic priors and the FPU visited-policy pow 1.0). Leaf, depth,
 caught, path, acts, edge visits and the scratch slots must be equal; the
 scratch's stat rows also equal the JAX package's gather. The PUCT scores
 agree within 1e-6, not exactly: the emulation sums the lanes in the order of
@@ -57,6 +59,7 @@ PROFILES = {
     "parent_weight": dict(SELECT_BRANCHES, fpuParentWeight=0.5, fpuLossProp=0.1,
                           valueWeightExponent=0.0),
     "selfplay": dataclasses.asdict(SearchParams.for_selfplay()),
+    "gatekeeper": dataclasses.asdict(SearchParams.for_gatekeeper()),
 }
 BOARDS = {"5x5": (TB.GameConfig(5, 5, 4), "tinynet"), "9x9": (TB.GameConfig(9, 9, 4), "uniform")}
 
@@ -216,13 +219,17 @@ def _eval_fn(cfg, evals):
 
 
 @functools.lru_cache(maxsize=None)
-def _mid_search_tree(board, graph=False):
+def _mid_search_tree(board, graph=False, gating=False):
     """A tree 30 playouts in; with `graph`, 80 playouts in under the selfplay
-    profile, whose graph search linked a transposition on 5x5."""
+    profile, whose graph search linked a transposition on 5x5; with
+    `gating`, 150 playouts in (the gating visits) under the gatekeeper
+    profile (graph search, uncertainty-weighted evaluations, so fractional
+    S_W rows, and optimistic priors), from other roots (seed 0), on which
+    it links transpositions on 5x5."""
     cfg, evals = BOARDS[board]
-    roots = _random_roots(cfg, 8, seed=len(board))
-    sp = SearchParams.for_selfplay() if graph else SearchParams()
-    return TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 80 if graph else 30, device="cpu",
+    roots = _random_roots(cfg, 8, seed=0 if gating else len(board))
+    sp = SearchParams.for_gatekeeper() if gating else SearchParams.for_selfplay() if graph else SearchParams()
+    return TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 150 if gating else 80 if graph else 30, device="cpu",
                          generator=torch.Generator().manual_seed(0))
 
 
@@ -231,13 +238,17 @@ def _descent_inputs(board, sp, max_depth=None):
     a scratch filled with arbitrary valid lanes (as an earlier playout
     leaves it). Under graph search every interior edge with two or more
     visits loses one, as a transposition leaves an edge behind its child, so
-    that descents stop at catch-ups."""
+    that descents stop at catch-ups; on the gatekeeper's tree only the edges
+    out of every third node slot do, so that descents also go deeper."""
     cfg, _ = BOARDS[board]
-    base = _mid_search_tree(board, sp.useGraphSearch)
+    base = _mid_search_tree(board, sp.useGraphSearch, sp.useUncertainty)
     tree = base._replace(edge_visits=base.edge_visits.clone())
     if sp.useGraphSearch:
         inner = tree.edge_visits[:, 1:]
-        inner -= (inner >= 2).to(inner.dtype)
+        behind = inner >= 2
+        if sp.useUncertainty:
+            behind &= (torch.arange(1, inner.shape[1] + 1) % 3 == 0)[None, :, None]
+        inner -= behind.to(inner.dtype)
     B, N, _ = tree.children.shape
     max_depth = cfg.area + 1 if max_depth is None else max_depth
     bidx = torch.arange(B)
@@ -307,7 +318,10 @@ def _check_against_plain(board, profile, max_depth=None):
 def test_emulated_kernel_matches_plain_descent(board, profile):
     ld, _, caught, tree = _check_against_plain(board, profile)
     assert (ld >= 2).any(), "no game descended past the first interior level"
-    if profile == "selfplay":
+    if profile == "gatekeeper":
+        w = tree.stats[..., TM.S_W][tree.stats[..., TM.S_VISITS] > 0]
+        assert (w != torch.round(w)).float().mean() > 0.5, "the gating tree's S_W rows are not fractional"
+    if profile in ("selfplay", "gatekeeper"):
         assert caught.any(), "no descent stopped at a catch-up"
         kids = tree.children.to(torch.int64)
         b = torch.arange(kids.shape[0])[:, None, None].expand_as(kids)

@@ -282,6 +282,55 @@ def test_trainer_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
     assert os.listdir(tmp_path) == []
 
 
+GATING_MODULES = ("program/__init__.py", "program/setup.py", "program/match.py", "utils/elo.py",
+                  "command/gatekeeper.py", "command/match.py", "command/loop.py", "command/summarize_sgfs.py",
+                  "command/benchmark.py")
+
+
+def test_the_gating_modules_are_checked():
+    """The gatekeeper, match and loop modules are among the sources checked
+    above and among the modules imported without the reference package."""
+    sources = _port_sources()
+    imported = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in PORT.rglob("*.py")}
+    for rel in GATING_MODULES:
+        assert PORT / rel in sources, rel
+        assert ".".join(Path(rel).with_suffix("").parts) in imported, rel
+
+
+def test_gating_entry_points_refuse_the_cpu_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from katacoffee_tpu_torch.command import benchmark, gatekeeper, loop, match, summarize_sgfs
+    from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.program import match as program_match
+    from katacoffee_tpu_torch.program.setup import load_eval_fn
+    from katacoffee_tpu_torch.search.mcts import uniform_eval_fn
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    cfg, sp, ev = GameConfig(), SearchParams.for_gatekeeper(), uniform_eval_fn(GameConfig())
+    model = str(ROOT / "tests/goldens/tinynet")
+    sgf = tmp_path / "sgfs"
+    sgf.mkdir()
+    from katacoffee_tpu_torch.dataio.sgf import write_sgf
+
+    (sgf / "g.sgf").write_text(write_sgf(5, 5, 4, [(2, 2, 0, 1)], "a", "b", winner=0))
+    for run in (
+        lambda: program_match.run_match(cfg, sp, sp, ev, ev, num_games=2, num_visits=2),
+        lambda: gatekeeper.run_gatekeeper(str(tmp_path / "g"), cfg, gatekeeper.GatekeeperConfig(), once=True),
+        lambda: gatekeeper.main(["-base-dir", str(tmp_path / "g"), "-quit-if-no-candidates"]),
+        lambda: loop.run_loop(str(tmp_path / "l"), cfg, loop.LoopConfig(num_cycles=1)),
+        lambda: loop.main(["-base-dir", str(tmp_path / "l")]),
+        lambda: match.run_round_robin(cfg, {"a": ev, "b": ev}, 2, 2),
+        lambda: match.main(["random", "random", "-games-per-pair", "2"]),
+        lambda: benchmark.main(["-visits", "2", "-batch-sizes", "1"]),
+        lambda: summarize_sgfs.collect_results([str(sgf)]),
+        lambda: load_eval_fn(cfg, model),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
+    assert os.listdir(tmp_path) == ["sgfs"]
+
+
 def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
     """`train`, `shuffle`, `validate` and `checkpoint` dispatch to their
     commands (each here stubbed to echo its arguments); `gtp` and unknown

@@ -250,18 +250,16 @@ def test_selection_branches_match_jax(extra):
     "kw,flag",
     [
         (dict(useNoisePruning=True), "useNoisePruning"),
-        (dict(useUncertainty=True), "useUncertainty"),
         (dict(numSearchThreads=2), "numSearchThreads"),
-        (dict(policyOptimism=0.5), "policyOptimism"),
-        (dict(rootPolicyOptimism=0.5), "rootPolicyOptimism"),
         (dict(rootSymmetryPruning=True), "rootSymmetryPruning"),
         (dict(useGraphSearch=True, graphSearchCatchUpLeakProb=0.1), "graphSearchCatchUpLeakProb"),
     ],
 )
 def test_unported_settings_raise(kw, flag):
     """The settings the port does not take yet raise, naming themselves;
-    those ported in this slice are held to JAX in
-    tests/test_torch_search_settings.py."""
+    those ported since are held to JAX in tests/test_torch_search_settings.py
+    and, for uncertainty weighting and policy optimism,
+    tests/test_torch_gatekeeper_search.py."""
     roots = TB.init_state(TCFG, 2, "cpu")
     with pytest.raises(NotImplementedError, match=flag):
         TM.run_search(TCFG, SearchParams(**kw), TM.uniform_eval_fn(TCFG), roots, 4, device="cpu")
