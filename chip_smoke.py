@@ -8,9 +8,12 @@ Phases, each printed with the seconds since start; the first failure ends
 the run with a non-zero exit and a traceback:
   0. arm a 1100 s watchdog; print the card (nvidia-smi) and torch's version;
      turn TF32 off so float32 means float32 in every comparison;
-  1. build the two CUDA kernels from the repo's sources, both nvcc runs at
-     once, and print their register and spill counts;
-  2. each kernel against its plain torch version: the child-stats gather
+  1. build the two CUDA kernels and the empty kernel (the launch floor)
+     from the repo's sources, the nvcc runs at once, and print their
+     register, shared memory and spill counts;
+  2. the launch floor: the empty kernel timed as the gather is (a CUDA
+     graph) and as the descent is (events around one launch); each kernel
+     against its plain torch version: the child-stats gather
      exactly at the search's shapes, timed against the plain version and
      torch.gather; the fused interior descent on copies of mid-search trees
      (B=512 b6c96 5x5, B=64 uniform 9x9, default and a branch profile; a
@@ -19,7 +22,8 @@ the run with a non-zero exit and a traceback:
      edges one visit behind their children), equal in every output,
      `caught` included, except games whose first different act is a
      near-tie of the plain version's scores of the two lanes (counted),
-     timed on the B=512 default and selfplay trees;
+     timed on the B=512 default and selfplay trees, with the deepest game's
+     level count;
   3. the b6c96 net (`run-s5200`, loaded with numpy) on the card against the
      CPU: float32 within 1e-4 on every head, the bf16 trunk within BF16_ATOL;
   4. the default profile's path: `benchmark_search` at B=512, 600 visits,
@@ -79,10 +83,13 @@ the run with a non-zero exit and a traceback:
      selfplay command's symmetry-randomizing evaluator (device busy share,
      launches and host syncs per playout), and that evaluator's cost in
      alternated pairs;
- 10. the trainer's and the gatekeeper's numbers as one JSON line each, the
-     kernel table as one JSON line (launches, check and times from phase 8
-     (a), the earlier paths' launches and the other shapes and trees beside
-     them), then the result line.
+ 10. one log line a timed kernel row (us, bound, launch floor, library
+     call; for the descent the deepest game's levels and us a level over
+     the floor); the trainer's and the gatekeeper's numbers as one JSON line
+     each, the kernel table as one JSON line (launches, check and times from
+     phase 8 (a), the earlier paths' launches and the other shapes and trees
+     beside them, each row with `floor_ms`, each descent row with
+     `max_levels` and `us_per_level`), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -99,6 +106,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 T0 = time.monotonic()
 MODEL_DIR = "artifacts/flagship_b6c96/models/run-s5200"
@@ -106,6 +114,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM data sheet, dense
 KERNEL_SHAPES = ((16, 64, 8, 24), (8, 130, 8, 100), (512, 182, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
 TIMED_SHAPES = ((512, 182, 8, 100), (512, 602, 8, 100), (512, 602, 8, 20))
+EMPTY_KERNEL = "katacoffee_tpu_torch/ops/empty_kernel.cu"
 # A kernel-vs-plain descent may pick another lane only where the plain
 # version scores the kernel's lane below its own by at most this (and not
 # equal): sums of float32 lanes in another order differ in the last bits of
@@ -174,6 +183,55 @@ def device_ms(fn, calls: int = 100, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def event_ms(launch, reps: int = 30, prepare=None) -> float:
+    """Device time of one call of `launch` between CUDA events, a sleep
+    kernel queued first so that the host's launch cost stays out of the
+    window, and `prepare()`, where given, called before the sleep; the
+    median of `reps`, in ms."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        if prepare is not None:
+            prepare()
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def launch_floor() -> dict:
+    """The card's launch floor: the empty kernel of EMPTY_KERNEL timed as
+    the gather is (`device_ms`: launches replayed in a CUDA graph) and as the
+    descent is (`event_ms`: events around one launch). In ms."""
+    import ctypes
+
+    import torch
+
+    from katacoffee_tpu_torch.ops._build import load_library
+
+    lib = load_library(Path(EMPTY_KERNEL).resolve())
+    lib.kc_empty.argtypes = [ctypes.c_void_p]
+    lib.kc_empty.restype = ctypes.c_int
+
+    def launch():
+        err = lib.kc_empty(torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the empty kernel did not launch: error {err}")
+
+    launch()
+    torch.cuda.synchronize()
+    floor = {"graph_ms": device_ms(launch), "event_ms": event_ms(launch)}
+    log(f"launch floor (an empty kernel): {floor['graph_ms'] * 1e3:.2f} us a launch replayed in a CUDA graph, "
+        f"{floor['event_ms'] * 1e3:.2f} us between events around one launch")
+    return floor
 
 
 def gather_inputs(shape, dev, seed: int):
@@ -395,7 +453,7 @@ def descent_bound_ms(cfg, tree, inputs, out) -> float:
     scratch slot written (44 B a lane); per non-terminal level the node's own
     utility (4 B) and the act (8 B), and on the game's first level its stats
     row (32 B; deeper nodes' rows were read as the level above's child row).
-    Each distinct candidate-table row once (4 B a lane); per step 8 B of path
+    Each distinct candidate-table row once (2 B a lane); per step 8 B of path
     and the 4 B edge-visit write (its read is the candidate's); per game 17 B
     in and 17 B out (leaf, depth, caught)."""
     import torch
@@ -421,15 +479,14 @@ def descent_bound_ms(cfg, tree, inputs, out) -> float:
     valid = int(((cand >= 0) & done[..., None]).sum())
     present = int(((out_child_c >= 0) & done[..., None]).sum())
     steps = int(torch.where(active, leaf_depth - depth, 0).sum())
-    nbytes = (levels * (17 + 44 * C) + int(nonterm.sum()) * 12 + int(first.sum()) * 32 + rows * 4 * C
+    nbytes = (levels * (17 + 44 * C) + int(nonterm.sum()) * 12 + int(first.sum()) * 32 + rows * 2 * C
               + valid * 12 + present * 32 + steps * 12 + B * 34)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30):
-    """Device time of one kernel launch (CUDA events around the launch only;
-    a sleep kernel queued first keeps the host's launch cost out of the
-    window) and the plain version's wall time per call, both on the same
+    """Device time of one kernel launch by `event_ms` (as the launch floor
+    is timed) and the plain version's wall time per call, both on the same
     snapshot restored before each call. Medians, in ms."""
     import torch
 
@@ -437,21 +494,16 @@ def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30):
     from katacoffee_tpu_torch.search import mcts
 
     node, depth, active, path, acts, scratch = inputs
-    cand = mcts._cand_table_i32(cfg, node.device)
+    cand = mcts._cand_table_i16(cfg, node.device)
     p, a = path.clone(), acts.clone()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    kernel = []
-    for _ in range(reps):
+
+    def restore():
         tree.edge_visits.copy_(start_ev)
         p.copy_(path)
         a.copy_(acts)
-        torch.cuda._sleep(1_000_000)
-        start.record()
-        descend_interior(sp, cand, tree, node, depth, active, p, a, scratch)
-        end.record()
-        end.synchronize()
-        kernel.append(start.elapsed_time(end))
+
+    kernel = event_ms(lambda: descend_interior(sp, cand, tree, node, depth, active, p, a, scratch), reps,
+                      prepare=restore)
     plain = []
     for _ in range(max(reps // 3, 3)):
         tree.edge_visits.copy_(start_ev)
@@ -463,7 +515,7 @@ def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30):
         torch.cuda.synchronize()
         plain.append((time.perf_counter() - t) * 1e3)
     tree.edge_visits.copy_(start_ev)
-    return statistics.median(kernel), statistics.median(plain)
+    return kernel, statistics.median(plain)
 
 
 def count_links(tree) -> int:
@@ -478,10 +530,13 @@ def count_links(tree) -> int:
     return int((parents > 1).sum())
 
 
-def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200, selfplay_nodes=182):
+def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200, selfplay_nodes=182, cfg15=None,
+                  batch15=32, sims15=100):
     """The fused descent kernel against `_descend_interior_plain` on copies
     of mid-search trees, held by `compare_descent`: B=512 b6c96 and B=64
-    uniform 9x9 under the default and a branch profile, and a B=512 b6c96
+    uniform 9x9 under the default and a branch profile, with `cfg15` a B=32
+    uniform tree of that board (15x15: the candidate table above the 48 KB
+    of shared memory a block has without opting in), and a B=512 b6c96
     tree grown under the selfplay profile (graph search, N=182), as it is
     and with every edge of two or more visits out of a node two or more
     plies below the root one visit behind its child (so that descents pass
@@ -511,6 +566,9 @@ def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200, sel
         (f"B={batch} b6c96 5x5 N={selfplay_nodes}", cfg, net, roots, sims, selfplay_nodes, selfplay,
          selfplay_profiles),
     )
+    if cfg15 is not None:
+        cases += ((f"B={batch15} uniform {cfg15.x_size}x{cfg15.y_size}", cfg15, mcts.uniform_eval_fn(cfg15),
+                   random_positions(cfg15, batch15, seed=4), sims15, None, SearchParams(), default_profiles[:1]),)
     timed = {(cases[0][0], "default"): "default", (cases[2][0], "selfplay"): "selfplay"}
     result = {"flips": 0, "games": 0, "levels": 0, "max_abs_err": 0.0, "timed": {}}
     for label, c, eval_fn, case_roots, case_sims, max_nodes, grow_sp, profiles in cases:
@@ -550,7 +608,8 @@ def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200, sel
             depth, active = inputs[1:3]
             leaf_depth = want[1]
             capped = leaf_depth < mcts._max_depth(c, sp)
-            levels = int(torch.where(active, leaf_depth - depth + capped.long(), 0).sum())
+            game_levels = torch.where(active, leaf_depth - depth + capped.long(), 0)
+            levels = int(game_levels.sum())
             n_caught = int(want[-1].sum())
             caught_depths = torch.bincount(leaf_depth[want[-1]]).tolist()
             result["flips"] += n_flip
@@ -567,12 +626,14 @@ def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200, sel
             if key is not None:
                 ms, plain_ms = time_descent(c, sp, tree, start_ev, inputs)
                 bound = descent_bound_ms(c, tree, inputs, got)
-                result["timed"][key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, timed_levels=levels,
+                result["timed"][key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                            timed_levels=levels, max_levels=int(game_levels.max()),
                                             shape=[batch, max_nodes, c.policy_size,
                                                    4 * max(c.x_size, c.y_size)])
                 log(
-                    f"  descent per call at {label} {pname} ({case_sims} sims in): kernel {ms * 1e3:.2f} us "
-                    f"device, plain {plain_ms * 1e3:.1f} us wall, bound {bound * 1e3:.3f} us (bytes)"
+                    f"  descent per call at {label} {pname} ({case_sims} sims in, deepest game "
+                    f"{int(game_levels.max())} levels): kernel {ms * 1e3:.2f} us device, plain "
+                    f"{plain_ms * 1e3:.1f} us wall, bound {bound * 1e3:.3f} us (bytes)"
                 )
         tree.edge_visits.copy_(base_ev)
     return result
@@ -1174,15 +1235,17 @@ def check_path_descent(label, cfg, sp, tree, inputs, timed: bool) -> dict:
     depth, active = inputs[1:3]
     leaf_depth = want[1]
     capped = leaf_depth < mcts._max_depth(cfg, sp)
-    levels = int(torch.where(active, leaf_depth - depth + capped.long(), 0).sum())
+    game_levels = torch.where(active, leaf_depth - depth + capped.long(), 0)
+    levels = int(game_levels.sum())
     B, N, A = tree.prior.shape
-    out = dict(timed_levels=levels, flips=flips, max_abs_err=err, games=int(active.sum()),
-               caught=int(want[-1].sum()), shape=[B, N, A, inputs[5].child_c.shape[-1]])
+    out = dict(timed_levels=levels, max_levels=int(game_levels.max()), flips=flips, max_abs_err=err,
+               games=int(active.sum()), caught=int(want[-1].sum()), shape=[B, N, A, inputs[5].child_c.shape[-1]])
     if timed:
         out["ms"], out["plain_ms"] = time_descent(cfg, sp, tree, start_ev, inputs)
         out["bound_ms"] = descent_bound_ms(cfg, tree, inputs, got)
-        log(f"{label}: {out['games']} games descending, {levels} levels: kernel {out['ms'] * 1e3:.2f} us device, "
-            f"plain {out['plain_ms'] * 1e3:.1f} us wall, bound {out['bound_ms'] * 1e3:.3f} us (bytes)")
+        log(f"{label}: {out['games']} games descending, {levels} levels, the deepest game {out['max_levels']}: "
+            f"kernel {out['ms'] * 1e3:.2f} us device, plain {out['plain_ms'] * 1e3:.1f} us wall, "
+            f"bound {out['bound_ms'] * 1e3:.3f} us (bytes)")
     return out
 
 
@@ -1995,6 +2058,36 @@ def profile_searches(dev, cfg, reused_tree, batch=512, sims=10, pairs=5):
     return out
 
 
+def gather_row(t: dict, floor: dict) -> dict:
+    """A gather timing with the launch floor as the gather is timed (a CUDA
+    graph)."""
+    return dict(t, floor_ms=floor["graph_ms"])
+
+
+def descent_row(t: dict, floor: dict) -> dict:
+    """A descent timing with the launch floor as the descent is timed (events
+    around one launch) and us a level of the deepest game over the floor."""
+    per_level = (t["ms"] - floor["event_ms"]) * 1e3 / max(t["max_levels"], 1)
+    return dict(t, floor_ms=floor["event_ms"], us_per_level=per_level)
+
+
+def log_kernel_rows(gather_entry: dict, descend_entry: dict) -> None:
+    """One line a timed row of the kernels line: us, the bound, the launch
+    floor, the library call, and for the descent the deepest game's levels
+    and us a level."""
+    def us(x):
+        return "n/a" if x is None else f"{x * 1e3:.2f}"
+
+    rows = [(f"gatekeeper {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
+    for label, r in rows:
+        log(f"  gather_rows {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
+            f"torch.gather {us(r['library_ms'])}, plain {us(r['plain_ms'])}")
+    rows = [(f"gatekeeper B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
+    for label, r in rows:
+        log(f"  descend_interior {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
+            f"deepest game {r['max_levels']} levels, {r['us_per_level']:.3f} us a level")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)
     import torch
@@ -2012,19 +2105,23 @@ def main() -> int:
     from katacoffee_tpu_torch.ops import _build, descend, gather
 
     t = time.monotonic()
-    with ThreadPoolExecutor(2) as pool:
-        for built in [pool.submit(m.load_kernel) for m in (gather, descend)]:
+    empty = Path(EMPTY_KERNEL).resolve()
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(gather.load_kernel), pool.submit(descend.load_kernel),
+                  pool.submit(_build.load_library, empty)]
+        for built in builds:
             built.result()
-    log(f"phase 1: gather and descent kernels built and loaded in {time.monotonic() - t:.1f}s")
-    for m in (gather, descend):
-        for line in _build.build_log(m.SOURCE).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {m.SOURCE.name}: {line.strip()}")
+    log(f"phase 1: gather, descent and empty kernels built and loaded in {time.monotonic() - t:.1f}s")
+    for source in (gather.SOURCE, descend.SOURCE, empty):
+        for line in _build.build_log(source).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  {source.name}: {line.strip()}")
 
     log("phase 2: kernels against their plain versions")
+    floor = launch_floor()
     kern = phase_kernel(dev)
     cfg = GameConfig(5, 5, 4)
-    desc = phase_descend(dev, cfg, GameConfig(9, 9, 4))
+    desc = phase_descend(dev, cfg, GameConfig(9, 9, 4), cfg15=GameConfig(15, 15, 5))
 
     log("phase 3: net")
     positions = random_positions(cfg, 64, seed=0)
@@ -2064,7 +2161,7 @@ def main() -> int:
     # path gave it; the earlier paths' launches and times beside them (the
     # trainer's path, phase 7, launches neither)
     shape = gate["gather_shape"]
-    t = gate["gather"][shape]
+    t = gather_row(gate["gather"][shape], floor)
     gather_entry = {
         "name": "gather_rows",
         "route": "cuda",
@@ -2081,16 +2178,17 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": t["library_ms"],
         "eager_ms": t["eager_ms"],
+        "floor_ms": t["floor_ms"],
         "shape": list(shape),
         "launches_default_path": search["launches"]["gather_rows"],
         "launches_per_search_default_path": search["per_search"]["gather_rows"],
         "other_shapes": {
-            **{f"gatekeeper {list(s)}": v for s, v in gate["gather"].items() if s != shape},
-            **{f"selfplay command {list(s)}": v for s, v in command["gather"].items()},
-            **{f"random inputs {list(s)}": v for s, v in kern["timings"].items()},
+            **{f"gatekeeper {list(s)}": gather_row(v, floor) for s, v in gate["gather"].items() if s != shape},
+            **{f"selfplay command {list(s)}": gather_row(v, floor) for s, v in command["gather"].items()},
+            **{f"random inputs {list(s)}": gather_row(v, floor) for s, v in kern["timings"].items()},
         },
     }
-    timed = gate["descent"][shape[0]]
+    timed = descent_row(gate["descent"][shape[0]], floor)
     descend_entry = {
         "name": "descend_interior",
         "route": "cuda",
@@ -2110,12 +2208,15 @@ def main() -> int:
         "bound_ms": timed["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "floor_ms": timed["floor_ms"],
+        "max_levels": timed["max_levels"],
+        "us_per_level": timed["us_per_level"],
         "shape": timed["shape"],
         "timed_levels": timed["timed_levels"],
         "other_trees": {
-            **{f"gatekeeper B={b}": v for b, v in gate["descent"].items() if b != shape[0]},
-            **{f"selfplay command B={b}": v for b, v in command["descent"].items()},
-            **{f"grown {k} tree B=512": v for k, v in desc["timed"].items()},
+            **{f"gatekeeper B={b}": descent_row(v, floor) for b, v in gate["descent"].items() if b != shape[0]},
+            **{f"selfplay command B={b}": descent_row(v, floor) for b, v in command["descent"].items()},
+            **{f"grown {k} tree B=512": descent_row(v, floor) for k, v in desc["timed"].items()},
         },
         "simulations_run_segment_path": selfplay["sims"],
         "launches_default_path": search["launches"]["descend_interior"],
@@ -2148,6 +2249,8 @@ def main() -> int:
         f"the daemon's own work in the rows runs " + ", ".join(f"{x:.2%}" for x in own) + " of the wall; "
         f"randomized evaluator {ab['randomized_ms'] / ab['plain_ms'] - 1:+.2%} on a fresh search; trainer "
         f"{trainer['ms_per_step_median']:.3f} ms a b6c96 B=256 step, {trainer['samples_per_s']:.1f} samples/s")
+    log("kernel rows (device us a call):")
+    log_kernel_rows(gather_entry, descend_entry)
     print(card_line(), flush=True)
     print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"gatekeeper": {k: v for k, v in gate.items() if k not in ("gather", "descent")}},

@@ -32,14 +32,20 @@ def _replay(games: list, device: torch.device) -> list:
 
     x, y, win_len, _ = games[0]
     cfg = GameConfig(x, y, win_len)
-    moves = [[d * cfg.area + my * x + mx for mx, my, d, _ in m] for _, _, _, m in games]
+    # a spot off the board or a direction outside 0-3 (the empty move's
+    # (-1, -1, D_NONE) too) is illegal, as the native rules core's is_legal
+    # has it; such a game is not replayed, so every flat action below is in
+    # range of the legal mask
+    off = [any(not (0 <= mx < x and 0 <= my < y and 0 <= d < 4) for mx, my, d, _ in m) for _, _, _, m in games]
+    moves = [[] if bad else [d * cfg.area + my * x + mx for mx, my, d, _ in m]
+             for bad, (_, _, _, m) in zip(off, games)]
     G, T = len(games), max(len(m) for m in moves)
     if T == 0:
-        return [None] * G  # no game ended without a move
+        return [False if bad else None for bad in off]  # no game ended without a move
     lengths = torch.tensor([len(m) for m in moves], device=device)
     acts = torch.tensor([m + [0] * (T - len(m)) for m in moves], device=device)
     rows = torch.arange(G, device=device)
-    ok = torch.ones((G,), dtype=torch.bool, device=device)
+    ok = ~torch.tensor(off, dtype=torch.bool, device=device)
     s = init_state(cfg, G, device)
     for t in range(T):
         live = t < lengths

@@ -9,6 +9,9 @@ Pallas kernel `_gather_kernel`, `katacoffee_tpu/ops/gather.py:39`). The plain ve
 `mcts._descend_interior` chooses between the two by device: CPU tensors take
 the plain version, CUDA tensors come here. `descend_interior` launches the
 kernel in `descend_kernel.cu` (built at first use by `_build.py`) or raises.
+The kernel copies the candidate table into shared memory (int16, flat, -1
+padded to 16 bytes: `mcts._cand_table_i16`) and carries each next node's
+fields from the chosen lane, so a level waits on two global round trips.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ SOURCE = Path(__file__).resolve().with_name("descend_kernel.cu")
 # row sum, whose order the kernel follows, changes its block width.
 MAX_LANES = 63
 EPS = 1e-8  # search/mcts.py _EPS
+# A block's shared memory on sm_90 (227 KB) less the kernel's mbarrier: the
+# largest candidate table the kernel stages (15x15 needs 135,600 bytes).
+MAX_TABLE_BYTES = 232_432
 
 # torch.pow(tensor, exponent) takes its own path for these exponents
 # (Pow.cpp: 0 fills ones, 1 copies; the CUDA kernel: 2, 3 and -2 multiply,
@@ -38,6 +44,12 @@ _FPU_PARENT, _FPU_VISITED_POLICY, _FPU_PARENT_WEIGHT = range(3)
 _NUM_FLOATS = 16
 _NUM_INTS = 4
 _NUM_POINTERS = 21
+
+
+def table_bytes(area: int, lanes: int) -> int:
+    """Bytes of the int16 candidate table [area + 1, 5, lanes], padded to
+    the 16-byte granule of the kernel's bulk copy."""
+    return -(-(area + 1) * 5 * lanes * 2 // 16) * 16
 
 
 def select_constants(sp) -> tuple[np.ndarray, np.ndarray]:
@@ -118,24 +130,29 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
     updates `tree.edge_visits`, `path`, `acts` and `scratch` in place, as
     `mcts._descend_interior_plain` does.
 
-    `cand` is the int32 candidate table [area + 1, 5, C]; `tree` a search
-    Tree, `scratch` its LevelScratch [B, D, C, ...]. Every tensor must lie on
-    one CUDA device, contiguous, with the Tree's dtypes; anything else, a
-    catch-up leak probability (it draws inside the loop), or a kernel that
-    fails to build or launch, raises. Counted in
-    `descend_interior.launches`."""
+    `cand` is the candidate table [area + 1, 5, C] as int16, flattened and
+    -1 padded to `table_bytes(area, C)` (`mcts._cand_table_i16`); `tree` a
+    search Tree, `scratch` its LevelScratch [B, D, C, ...]. Every tensor
+    must lie on one CUDA device, contiguous, with the Tree's dtypes; anything
+    else, a table above MAX_TABLE_BYTES, a catch-up leak probability (it
+    draws inside the loop), or a kernel that fails to build or launch,
+    raises. Counted in `descend_interior.launches`."""
     if sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0:
         raise ValueError("descend_interior: graphSearchCatchUpLeakProb > 0 is not taken")
     B, N, A = tree.children.shape
     D, C = scratch.child_c.shape[1:]
     if not 1 <= C <= MAX_LANES:
         raise ValueError(f"descend_interior: {C} candidate lanes, the kernel takes 1..{MAX_LANES}")
-    area = cand.shape[0] - 1
+    area = A // 4
+    nbytes = table_bytes(area, C)
+    if nbytes > MAX_TABLE_BYTES:
+        raise ValueError(f"descend_interior: a candidate table of {nbytes} bytes does not fit the "
+                         f"{MAX_TABLE_BYTES} bytes of shared memory a block has")
     args = [
         ("last_spot", tree.states.last_spot, torch.int64, (B, N)),
         ("last_dir", tree.states.last_dir, torch.int64, (B, N)),
         ("is_terminal", tree.is_terminal, torch.bool, (B, N)),
-        ("cand", cand, torch.int32, (area + 1, 5, C)),
+        ("cand", cand, torch.int16, (nbytes // 2,)),
         ("children", tree.children, torch.int32, (B, N, A)),
         ("edge_visits", tree.edge_visits, torch.int32, (B, N, A)),
         ("prior", tree.prior, torch.float32, (B, N, A)),
@@ -159,8 +176,8 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
             "descend_interior: needs every tensor on one CUDA device, got "
             + ", ".join(f"{name} on {t.device}" for name, t, _, _ in args)
         )
-    if tree.stats.data_ptr() % 16 or scratch.cs_raw.data_ptr() % 16:
-        raise ValueError("descend_interior: stats and cs_raw must be 16-byte aligned")
+    if tree.stats.data_ptr() % 16 or scratch.cs_raw.data_ptr() % 16 or cand.data_ptr() % 16:
+        raise ValueError("descend_interior: stats, cs_raw and cand must be 16-byte aligned")
     if dev.index != torch.cuda.current_device():
         # the kernel launches on the current device
         with torch.cuda.device(dev):

@@ -418,9 +418,15 @@ def _cand_table(cfg: GameConfig, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _cand_table_i32(cfg: GameConfig, device: torch.device) -> torch.Tensor:
-    """The candidate table as the descent kernel reads it."""
-    return _cand_table(cfg, device).to(torch.int32).contiguous()
+def _cand_table_i16(cfg: GameConfig, device: torch.device) -> torch.Tensor:
+    """The candidate table as the descent kernel copies it into shared
+    memory: int16 (every flat action is below 4 * area <= 900 for the boards
+    it takes), flattened, -1 padded to a multiple of 16 bytes."""
+    flat = _cand_table_np(cfg.x_size, cfg.y_size, cfg.win_len).reshape(-1)
+    if flat.max() >= 2**15:
+        raise ValueError(f"the candidate table of a {cfg.x_size}x{cfg.y_size} board does not fit int16")
+    padded = np.concatenate([flat, np.full((-flat.size) % 8, -1, np.int64)]).astype(np.int16)
+    return torch.from_numpy(padded).to(device)
 
 
 def _cand_lanes(cfg: GameConfig, states: GameState, bidx, node):
@@ -795,7 +801,7 @@ def _descend_interior(cfg, sp: SearchParams, tree: Tree, node, depth, active, pa
     which raises on anything it does not take. No fallback."""
     if tree.stats.device.type == "cpu" and node.device.type == "cpu":
         return _descend_interior_plain(cfg, sp, tree, node, depth, active, path, acts, scratch)
-    cand = _cand_table_i32(cfg, node.device)
+    cand = _cand_table_i16(cfg, node.device)
     return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
 
 

@@ -138,9 +138,12 @@ def _first_max(sel):
 
 def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_first_max):
     """The kernel's descent over CPU tensors, updated in place through numpy
-    views, choosing each level's lane with `pick(scores)`. Returns (leaf,
-    leaf_depth, caught) and {(game, depth): scores} of each non-terminal
-    level."""
+    views, choosing each level's lane with `pick(scores)`. As in the kernel,
+    only the first node's fields (terminal flag, candidate row, stats row,
+    own utility) are read from the tree; every later node's come with the
+    child lane the level above chose, and an edge visit is written as that
+    lane's loaded count + 1, never read back. Returns (leaf, leaf_depth,
+    caught) and {(game, depth): scores} of each non-terminal level."""
     cand_tab = TM._cand_table_np(cfg.x_size, cfg.y_size, cfg.win_len)
     st = tree.states
     last_spot, last_dir = st.last_spot.numpy(), st.last_dir.numpy()
@@ -153,17 +156,25 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
     leaf, leaf_depth = node.clone().numpy(), depth.clone().numpy()
     caught = np.zeros(B, bool)
     scores = {}
+
+    def fields(b, n):
+        """(terminal, candidate row, stats row, own utility) of node n."""
+        spot, direction = int(last_spot[b, n]), int(last_dir[b, n])
+        spot = cfg.area if spot < 0 or spot > cfg.area else spot
+        return bool(term_t[b, n]), cand_tab[spot, min(max(direction, 0), 4)], stats[b, n], self_stats[b, n, TM.F_U]
+
     for b in range(B):
         n, d, on = int(node[b]), int(depth[b]), bool(active[b])
+        if on:
+            term, cand, ns, self_u = fields(b, n)
         while on:
-            spot, direction = int(last_spot[b, n]), int(last_dir[b, n])
-            spot = cfg.area if spot < 0 or spot > cfg.area else spot
-            cand = cand_tab[spot, min(max(direction, 0), 4)]
-            kids, pr, w, live, q_child, evs, cvis = [], [], [], [], [], [], []
+            kids, pr, w, live, q_child, evs, cvis, lanes = [], [], [], [], [], [], [], []
             for c in range(C):
                 a = int(cand[c])
-                kid, ev, p = (int(children[b, n, a]), F(ev_t[b, n, a]), prior[b, n, a]) if a >= 0 else (-1, F(0), F(-1))
-                raw = stats[b, kid] if 0 <= kid < N else np.zeros(8, F)
+                kid, evi, p = (int(children[b, n, a]), int(ev_t[b, n, a]), prior[b, n, a]) if a >= 0 else (-1, 0, F(-1))
+                ev = F(evi)
+                on_board = 0 <= kid < N
+                raw = stats[b, kid] if on_board else np.zeros(8, F)
                 cs_raw[b, d - 1, c], prior_c[b, d - 1, c] = raw, p
                 child_c[b, d - 1, c], ev_c[b, d - 1, c] = kid, ev
                 is_live = kid >= 0 and ev > 0
@@ -172,20 +183,22 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
                 live.append(is_live)
                 w.append(raw[1] * (ev / max(raw[0], F(1))) if is_live else F(0))
                 q_child.append(-raw[3])
-                evs.append(ev)
+                evs.append(evi)
                 cvis.append(raw[0])
-            if term_t[b, n]:
+                lanes.append(fields(b, kid) if on_board else None)
+            if term:
                 break
-            sel = _scores(sp, stats[b, n], self_stats[b, n, TM.F_U], pr, w, live, q_child)
+            sel = _scores(sp, ns, self_u, pr, w, live, q_child)
             scores[(b, d)] = sel
             best = pick(sel)
             acts_n[b, d] = best
-            caught[b] = sp.useGraphSearch and kids[best] >= 0 and evs[best] < cvis[best] - F(0.5)
+            caught[b] = sp.useGraphSearch and kids[best] >= 0 and F(evs[best]) < cvis[best] - F(0.5)
             if kids[best] < 0 or caught[b]:
                 break
-            ev_t[b, n, cand[best]] += 1
+            ev_t[b, n, cand[best]] = evs[best] + 1
             path_n[b, d + 1] = kids[best]
             n, d = kids[best], d + 1
+            term, cand, ns, self_u = lanes[best]
             on = d < D
         leaf[b], leaf_depth[b] = n, d
     return torch.from_numpy(leaf), torch.from_numpy(leaf_depth), torch.from_numpy(caught), scores
@@ -417,6 +430,7 @@ def test_layout_constants_match_the_kernel_source():
     declared = {k: int(v) for k, v in re.findall(r"constexpr int (kNum\w+) = (\d+);", src)}
     assert declared == {"kNumFloats": descend._NUM_FLOATS, "kNumInts": descend._NUM_INTS,
                         "kNumPointers": descend._NUM_POINTERS}
+    assert re.search(r"constexpr int kMaxTableBytes = (\d+);", src).group(1) == str(descend.MAX_TABLE_BYTES)
     floats, ints = descend.select_constants(SearchParams.for_selfplay())
     assert (floats.size, ints.size) == (descend._NUM_FLOATS, descend._NUM_INTS)
 
@@ -440,7 +454,7 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     sp = SearchParams()
     cfg, tree, state = _descent_inputs("5x5", sp)
     node, depth, active, path, acts, scratch = state
-    cand = TM._cand_table_i32(cfg, torch.device("cpu"))
+    cand = TM._cand_table_i16(cfg, torch.device("cpu"))
     with pytest.raises(ValueError, match="one CUDA device"):
         descend.descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
     meta_node = torch.empty(node.shape, dtype=node.dtype, device="meta")
@@ -457,6 +471,37 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     leak = SearchParams(useGraphSearch=True, graphSearchCatchUpLeakProb=0.1)
     with pytest.raises(ValueError, match="graphSearchCatchUpLeakProb"):
         descend.descend_interior(leak, cand, tree, node, depth, active, path, acts, scratch)
+
+
+@pytest.mark.parametrize("board", [(5, 5, 4), (7, 7, 5), (9, 6, 5), (15, 15, 5)],
+                         ids=["5x5", "7x7w5", "9x6w5", "15x15"])
+def test_int16_candidate_table_equals_the_table_and_fits_shared_memory(board):
+    cfg = TB.GameConfig(*board)
+    tab = TM._cand_table(cfg, torch.device("cpu"))
+    flat = TM._cand_table_i16(cfg, torch.device("cpu"))
+    C = 4 * max(cfg.x_size, cfg.y_size)
+    assert flat.dtype == torch.int16 and flat.is_contiguous()
+    assert flat.numel() * 2 == descend.table_bytes(cfg.area, C) and (flat.numel() * 2) % 16 == 0
+    assert descend.table_bytes(cfg.area, C) <= descend.MAX_TABLE_BYTES
+    assert torch.equal(flat[: tab.numel()].to(torch.int64), tab.reshape(-1))
+    assert (flat[tab.numel():] == -1).all() and flat.numel() - tab.numel() < 8
+    if board[0] <= 9:
+        assert descend.table_bytes(cfg.area, C) <= 48 * 1024  # no opt-in to large shared memory
+
+
+def test_kernel_wrapper_refuses_an_int32_table_and_one_above_shared_memory():
+    sp = SearchParams()
+    cfg, tree, state = _descent_inputs("5x5", sp)
+    node, depth, active, path, acts, scratch = state
+    wide = TM._cand_table(cfg, torch.device("cpu")).to(torch.int32).reshape(-1)
+    with pytest.raises(TypeError, match="cand must be torch.int16"):
+        descend.descend_interior(sp, wide, tree, node, depth, active, path, acts, scratch)
+    # a 20x20 tree (area 400) with 60 lanes needs 240,600 bytes of table
+    big = tree._replace(children=torch.full(tree.children.shape[:2] + (4 * 400,), -1, dtype=torch.int32))
+    lanes = TM.make_level_scratch(TB.GameConfig(15, 15, 5), node.shape[0], scratch.child_c.shape[1], "cpu")
+    table = torch.full((descend.table_bytes(400, 60) // 2,), -1, dtype=torch.int16)
+    with pytest.raises(ValueError, match="shared memory"):
+        descend.descend_interior(sp, table, big, node, depth, active, path, acts, lanes)
 
 
 def test_cuda_search_without_a_card_raises():

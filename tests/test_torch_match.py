@@ -215,3 +215,17 @@ def test_collect_results_skips_what_jax_skips(tmp_path):
     want = jax_collect([str(tmp_path)])
     assert collect_results([str(tmp_path)], device="cpu") == want
     assert collect_results([str(tmp_path)], validate=False) == jax_collect([str(tmp_path)], validate=False)
+
+
+# Games the native rules core refuses at their first move and the replay
+# must skip before it indexes the legal mask: an off-board spot (5, 0) that
+# a flat index would alias to (0, 1), the empty move (-1, -1, D_NONE), and a
+# spot (25, 25) whose flat index lies past the mask.
+@pytest.mark.parametrize("moves", ["B[fab];W[bba]", "B[];W[dea]", "B[zzd]"],
+                         ids=["off_board", "empty_move", "past_the_mask"])
+def test_collect_results_skips_off_board_moves_as_jax(tmp_path, moves):
+    (tmp_path / "g.sgf").write_text(f"(;FF[4]GM[1]SZ[5]WLL[4]PB[x]PW[y]RE[B+];{moves})")
+    want = jax_collect([str(tmp_path)])
+    assert want == []
+    assert collect_results([str(tmp_path)], device="cpu") == want
+
