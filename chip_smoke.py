@@ -66,7 +66,7 @@ the run with a non-zero exit and a traceback:
      step, samples/s, the parts of a step, peak memory and a profile; one
      float32 step on the card against the CPU. The training path launches
      neither kernel (the JAX trainer reaches no Pallas kernel);
-  8. the gatekeeper, the main path since it was ported: (a)
+  8. the gatekeeper: (a)
      `command.gatekeeper.main` in this process with configs/gatekeeper.cfg
      as it stands (200 games at 150 visits, b6c96 bf16, for_gatekeeper():
      uncertainty weighting and policy optimism) gating run-s5200 against
@@ -75,21 +75,37 @@ the run with a non-zero exit and a traceback:
      games/s, plies, searched visits/s, the tally and the decision, every
      SGF replayed to its winner, each kernel held to its plain version on
      the copies and timed, and a profile of a B=100 gating search; (b) a
-     float32 gating match of 8 games at 32 visits on the card and on the
+     float32 gating match of 4 games at 32 visits (8 until the GTP phase
+     came) on the card and on the
      CPU with the same injected draws, the same games; (c) one cycle of
      `command.loop.run_loop` at reduced depth (selfplay, shuffle, 20 train
      steps from the flagship checkpoint, export, a 16-game gate);
-  9. profiles of a short B=512 search under both profiles and with the
+  9. the GTP engine, the main path since it was ported (`phase_gtp`): (a)
+     the engine `gtp -config configs/gtp_example.cfg -model run-s5200`
+     builds (400 visits; graph search, noise pruning, uncertainty, subtree
+     bias, root symmetry pruning) over a scripted session (four genmoves,
+     kata-analyze with ownership, again with an avoid of its best move,
+     kata-raw-nn, genmove_debug), with both kernels' launch counts set to 0
+     before and read after and their inputs copied (`PathCopies`): the
+     replies, seconds and root visits/s of each genmove, a B=1 profile;
+     one genmove through the command in a subprocess; a ponder and a
+     genmove that starts from it; (b) each kernel held to its plain version
+     on the copies and timed, the descent also with an avoid_until mask
+     forbidding lanes at depths 1 and more (lanes hit counted) and with one
+     forbidding every lane (ignored); (c) a float32 engine's genmoves on
+     the card and on the CPU, the same moves and visits;
+ 10. profiles of a short B=512 search under both profiles and with the
      selfplay command's symmetry-randomizing evaluator (device busy share,
      launches and host syncs per playout), and that evaluator's cost in
      alternated pairs;
- 10. one log line a timed kernel row (us, bound, launch floor, library
+ 11. one log line a timed kernel row (us, bound, launch floor, library
      call; for the descent the deepest game's levels and us a level over
-     the floor); the trainer's and the gatekeeper's numbers as one JSON line
-     each, the kernel table as one JSON line (launches, check and times from
-     phase 8 (a), the earlier paths' launches and the other shapes and trees
-     beside them, each row with `floor_ms`, each descent row with
-     `max_levels` and `us_per_level`), then the result line.
+     the floor); the trainer's, the GTP engine's and the gatekeeper's
+     numbers as one JSON line each, the kernel table as one JSON line
+     (launches, check and times from phase 9 (a), the earlier paths'
+     launches and the other shapes and trees beside them, each row with
+     `floor_ms`, each descent row with `max_levels` and `us_per_level`),
+     then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -362,7 +378,7 @@ def descent_inputs(cfg, sp, tree):
     return node, depth, active, path, acts, mcts.make_level_scratch(cfg, B, max_depth, dev)
 
 
-def run_descent(fn, cfg, sp, tree, start_ev, inputs):
+def run_descent(fn, cfg, sp, tree, start_ev, inputs, avoid_until=None):
     """`fn` (kernel dispatcher or plain version) on copies of the inputs;
     returns (leaf, leaf_depth, path, acts, edge_visits, *scratch, caught)."""
     import torch
@@ -373,12 +389,12 @@ def run_descent(fn, cfg, sp, tree, start_ev, inputs):
     tree.edge_visits.copy_(start_ev)
     p, a = path.clone(), acts.clone()
     sc = mcts.LevelScratch(*(x.clone() for x in scratch))
-    leaf, leaf_depth, caught = fn(cfg, sp, tree, node, depth, active, p, a, sc)
+    leaf, leaf_depth, caught = fn(cfg, sp, tree, node, depth, active, p, a, sc, avoid_until)
     torch.cuda.synchronize()
     return (leaf, leaf_depth, p, a, tree.edge_visits.clone(), *sc, caught)
 
 
-def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want) -> tuple[int, float]:
+def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_until=None) -> tuple[int, float]:
     """Holds a descent's outputs `got` (leaf, leaf_depth, path, acts,
     edge_visits, *scratch, caught) to the plain version's `want` from the same
     `inputs`. A game whose acts agree must agree in every output. A game
@@ -417,7 +433,7 @@ def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want) -> tuple[
                        path_p[flip][(cols <= first[:, None])[flip]]):
         raise AssertionError(f"{label}: a game's path differs before its first different act")
     before = (cols[:, :D] < first[:, None])[flip]  # slot j <-> depth j + 1
-    for i in range(5, 9):
+    for i in range(5, 5 + len(mcts.LevelScratch._fields)):
         if not torch.equal(got[i][flip][before], want[i][flip][before]):
             raise AssertionError(f"{label}: scratch output {i} differs above the first different act")
     # edge visits agree outside the rows of the nodes from that depth down
@@ -431,7 +447,7 @@ def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want) -> tuple[
     at = path_p[bidx, first].clamp(min=0)
     recorded = active & (first >= depth) & (first <= want[1]) & (first < D) & ~tree.is_terminal[bidx, at]
     lane_k, lane_p = acts_k[bidx, first], acts_p[bidx, first]
-    _, _, sel = mcts._interior_level(cfg, sp, tree, bidx, at)
+    _, _, sel = mcts._interior_level(cfg, sp, tree, bidx, at, first, avoid_until)
     C = sel.shape[1]
     in_range = (lane_k >= 0) & (lane_k < C)
     gap = sel[bidx, lane_p] - sel[bidx, lane_k.clamp(0, C - 1)]
@@ -445,7 +461,34 @@ def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want) -> tuple[
     return int(flip.sum()), err
 
 
-def descent_bound_ms(cfg, tree, inputs, out) -> float:
+def forbidden_lanes(cfg, tree, inputs, out, avoid_until) -> int:
+    """The legal lanes that `avoid_until` forbade, with the mask kept (some
+    legal lane of the node left), on the levels a descent `out` (the plain
+    version's outputs) recorded: the lanes its kernel had to score -inf."""
+    import torch
+
+    from katacoffee_tpu_torch.search import mcts
+
+    node, depth, active, _, _, scratch = inputs
+    leaf_depth, path, prior_c = out[1], out[2], out[6]
+    B, D, _ = scratch.child_c.shape
+    bidx = torch.arange(B, device=node.device)
+    hits = 0
+    for d in range(1, D):
+        on = active & (depth <= d) & (d <= leaf_depth)
+        if not bool(on.any()):
+            continue
+        at = path[:, d].clamp(min=0)
+        cand, valid = mcts._cand_lanes(cfg, tree.states, bidx, at)
+        pidx = (tree.states.to_move[bidx, at].to(torch.int64) - 1).clamp(0, 1)
+        forbid = mcts._compact_row(avoid_until[bidx, pidx], cand, valid, 0) > d
+        legal = prior_c[:, d - 1] >= 0
+        keep = (legal & ~forbid).any(-1, keepdim=True)
+        hits += int((forbid & legal & keep & on[:, None]).sum())
+    return hits
+
+
+def descent_bound_ms(cfg, tree, inputs, out, sp=None, avoid_until=None) -> float:
     """Least time for this descent at the HBM rate, each byte the kernel must
     read or write counted once, from the levels this run's data needs. Per
     level: the node's terminal flag and last move (17 B), 12 B per candidate
@@ -455,7 +498,9 @@ def descent_bound_ms(cfg, tree, inputs, out) -> float:
     row (32 B; deeper nodes' rows were read as the level above's child row).
     Each distinct candidate-table row once (2 B a lane); per step 8 B of path
     and the 4 B edge-visit write (its read is the candidate's); per game 17 B
-    in and 17 B out (leaf, depth, caught)."""
+    in and 17 B out (leaf, depth, caught). With noise pruning (`sp`) 4 B a
+    candidate's rank read and 4 B a lane's rank_c written; with `avoid_until`
+    4 B a candidate's avoid depth and 1 B a game's first mover."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
@@ -481,10 +526,14 @@ def descent_bound_ms(cfg, tree, inputs, out) -> float:
     steps = int(torch.where(active, leaf_depth - depth, 0).sum())
     nbytes = (levels * (17 + 44 * C) + int(nonterm.sum()) * 12 + int(first.sum()) * 32 + rows * 2 * C
               + valid * 12 + present * 32 + steps * 12 + B * 34)
+    if sp is not None and sp.useNoisePruning:
+        nbytes += valid * 4 + levels * 4 * C
+    if avoid_until is not None:
+        nbytes += valid * 4 + int(active.sum())
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30):
+def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30, avoid_until=None):
     """Device time of one kernel launch by `event_ms` (as the launch floor
     is timed) and the plain version's wall time per call, both on the same
     snapshot restored before each call. Medians, in ms."""
@@ -502,8 +551,8 @@ def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30):
         p.copy_(path)
         a.copy_(acts)
 
-    kernel = event_ms(lambda: descend_interior(sp, cand, tree, node, depth, active, p, a, scratch), reps,
-                      prepare=restore)
+    kernel = event_ms(lambda: descend_interior(sp, cand, tree, node, depth, active, p, a, scratch, avoid_until),
+                      reps, prepare=restore)
     plain = []
     for _ in range(max(reps // 3, 3)):
         tree.edge_visits.copy_(start_ev)
@@ -511,7 +560,7 @@ def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30):
         a.copy_(acts)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        mcts._descend_interior_plain(cfg, sp, tree, node, depth, active, p, a, scratch)
+        mcts._descend_interior_plain(cfg, sp, tree, node, depth, active, p, a, scratch, avoid_until)
         torch.cuda.synchronize()
         plain.append((time.perf_counter() - t) * 1e3)
     tree.edge_visits.copy_(start_ev)
@@ -1219,19 +1268,19 @@ def check_path_gather(label, table, idx) -> tuple[dict, float]:
     return time_gather(table, idx, label + ": "), (got - want).abs().max().item()
 
 
-def check_path_descent(label, cfg, sp, tree, inputs, timed: bool) -> dict:
+def check_path_descent(label, cfg, sp, tree, inputs, timed: bool, avoid_until=None) -> dict:
     """The descent kernel against `_descend_interior_plain` on a copy of the
-    tree and inputs the main path gave it at one launch, held by
-    `compare_descent`; with `timed`, then timed by `time_descent`, its
-    bound from this copy."""
+    tree and inputs the main path gave it at one launch (with the avoid mask
+    it was given), held by `compare_descent`; with `timed`, then timed by
+    `time_descent`, its bound from this copy."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
 
     start_ev = tree.edge_visits.clone()
-    got = run_descent(mcts._descend_interior, cfg, sp, tree, start_ev, inputs)
-    want = run_descent(mcts._descend_interior_plain, cfg, sp, tree, start_ev, inputs)
-    flips, err = compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want)
+    got = run_descent(mcts._descend_interior, cfg, sp, tree, start_ev, inputs, avoid_until)
+    want = run_descent(mcts._descend_interior_plain, cfg, sp, tree, start_ev, inputs, avoid_until)
+    flips, err = compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_until)
     depth, active = inputs[1:3]
     leaf_depth = want[1]
     capped = leaf_depth < mcts._max_depth(cfg, sp)
@@ -1240,9 +1289,11 @@ def check_path_descent(label, cfg, sp, tree, inputs, timed: bool) -> dict:
     B, N, A = tree.prior.shape
     out = dict(timed_levels=levels, max_levels=int(game_levels.max()), flips=flips, max_abs_err=err,
                games=int(active.sum()), caught=int(want[-1].sum()), shape=[B, N, A, inputs[5].child_c.shape[-1]])
+    if avoid_until is not None:
+        out["forbidden_lanes"] = forbidden_lanes(cfg, tree, inputs, want, avoid_until)
     if timed:
-        out["ms"], out["plain_ms"] = time_descent(cfg, sp, tree, start_ev, inputs)
-        out["bound_ms"] = descent_bound_ms(cfg, tree, inputs, got)
+        out["ms"], out["plain_ms"] = time_descent(cfg, sp, tree, start_ev, inputs, avoid_until=avoid_until)
+        out["bound_ms"] = descent_bound_ms(cfg, tree, inputs, got, sp, avoid_until)
         log(f"{label}: {out['games']} games descending, {levels} levels, the deepest game {out['max_levels']}: "
             f"kernel {out['ms'] * 1e3:.2f} us device, plain {out['plain_ms'] * 1e3:.1f} us wall, "
             f"bound {out['bound_ms'] * 1e3:.3f} us (bytes)")
@@ -1284,15 +1335,15 @@ class PathCopies:
             self.gathers[tuple(table.shape) + (idx.shape[1],)] = (table.clone(), idx.clone())
             return kept[1](table, idx)
 
-        def copy_descent(c, sp, tree, node, depth, active, path, acts, scratch):
+        def copy_descent(c, sp, tree, node, depth, active, path, acts, scratch, avoid_until=None):
             B = node.shape[0]
             self.descent_calls[B] += 1
             if self.descent_calls[B] % self.snapshot_every == 0:
                 copy = mcts.Tree(*(x.map(torch.clone) if isinstance(x, tuple) else x.clone() for x in tree))
                 self.descents.setdefault(B, []).append((self.descent_calls[B], sp, copy, tuple(
                     x.clone() for x in (node, depth, active, path, acts)) + (mcts.LevelScratch(*(
-                        x.clone() for x in scratch)),)))
-            return kept[2](c, sp, tree, node, depth, active, path, acts, scratch)
+                        x.clone() for x in scratch)),), None if avoid_until is None else avoid_until.clone()))
+            return kept[2](c, sp, tree, node, depth, active, path, acts, scratch, avoid_until)
 
         mcts._simulate_once, mcts.gather_rows, mcts._descend_interior = simulate, copy_gather, copy_descent
         gather_rows.launches = descend_interior.launches = 0
@@ -1328,8 +1379,8 @@ class PathCopies:
         self.gathers.clear()
         descent_timings = {}
         for B, copies in sorted(self.descents.items(), reverse=True):
-            checked = [check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, False)
-                       for n, sp, tree, inputs in copies]
+            checked = [check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, False, avoid)
+                       for n, sp, tree, inputs, avoid in copies]
             log(f"{label} B={B}: descent kernel == plain on the path's own tree at launches "
                 f"{[c[0] for c in copies]}: games descending {[c['games'] for c in checked]}, levels "
                 f"{[c['timed_levels'] for c in checked]}, catch-ups {[c['caught'] for c in checked]}, near-tie act "
@@ -1338,8 +1389,8 @@ class PathCopies:
             if checked[best]["timed_levels"] == 0:
                 raise AssertionError(f"{label} B={B}: no copied descent went below the root, so the kernel is not "
                                      f"checked")
-            n, sp, tree, inputs = copies[best]
-            descent_timings[B] = check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, True)
+            n, sp, tree, inputs, avoid = copies[best]
+            descent_timings[B] = check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, True, avoid)
             descent_timings[B].update(
                 launch=n, flips=sum(c["flips"] for c in checked), games=sum(c["games"] for c in checked),
                 levels_compared=sum(c["timed_levels"] for c in checked),
@@ -1812,7 +1863,7 @@ def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=10):
             "sims": copies.sims, **checked, "gather_shape": next(iter(checked["gather"])), "profile": prof}
 
 
-def phase_gate_card_vs_cpu(dev, cfg, games=8, visits=32):
+def phase_gate_card_vs_cpu(dev, cfg, games=4, visits=32):
     """The card against the CPU: a float32 gating match (run-s5200 against
     run-s4800, for_gatekeeper()) of `games` games at `visits` visits with
     the same injected Gumbel draws on both. The move records must be equal;
@@ -1932,6 +1983,206 @@ def phase_loop(dev, cfg, root, rows=1000, batch=64, visits=16, moves=6, steps=20
         f"shuffled into {shuffled}, {steps} b6c96 B={batch} train steps from step {start} to {step}, {export} gated "
         f"({gate_games} games at {gate_visits} visits) into {landed[0]}, its SGFs replayed; {wall:.1f} s")
     return {"wall_s": wall, "rows": int(got["weight"].shape[0]), "export": export, "landed": landed[0]}
+
+
+GTP_CFG = "configs/gtp_example.cfg"
+GTP_WINRATE_TOL = 2e-4  # tests/torch_parity.py assert_same_search: float32 sums of another order
+
+
+def gtp_engine(dev, dtype=None, **kw):
+    """The GTP engine as `python -m katacoffee_tpu_torch gtp -config GTP_CFG
+    -model MODEL_DIR` builds it (command/gtp.py `main`, cli.py `_gtp`):
+    configs/gtp_example.cfg over SearchParams.for_tests_v2(), run-s5200 on
+    `dev` (bf16 trunk unless `dtype`), its evaluator and cached full-head
+    forward. Returns (GTPEngine, SearchParams, GameConfig, maxVisits)."""
+    from katacoffee_tpu_torch.command.gtp import GTPEngine
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.program.setup import load_game_config, load_search_params
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.utils.config import ConfigParser
+
+    c = ConfigParser(GTP_CFG)
+    sp = load_search_params(c, SearchParams.for_tests_v2())
+    model, cfg, _ = load_exported_model(MODEL_DIR, dev, dtype)
+    if load_game_config(c) != cfg:
+        raise AssertionError(f"{GTP_CFG} plays {load_game_config(c)}, the model {cfg}")
+    visits = c.get_int("maxVisits")
+    eng = GTPEngine(cfg, sp, mcts.make_nn_eval_fn(cfg, model), max_visits=visits,
+                    raw_fwd=mcts.make_cached_raw_forward_fn(cfg, model), device=dev, **kw)
+    return eng, sp, cfg, visits
+
+
+def gtp_session(eng, lines) -> list[tuple[str, str, float]]:
+    """Feeds `lines` to the engine one at a time: (line, reply, seconds)."""
+    import torch
+
+    out = []
+    for line in lines:
+        t = time.monotonic()
+        reply = eng.handle(line)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        reply = reply[0] if isinstance(reply, tuple) else reply
+        out.append((line, reply, dt))
+        log(f"  gtp> {line}  ({dt:.3f} s)")
+        for r in reply.splitlines():
+            log(f"  gtp< {r}")
+    return out
+
+
+def phase_gtp(dev, snapshot_every=200, profile_sims=10, ponder_visits=200, cpu_visits=64, cpu_moves=3,
+              cli_visits=100):
+    """The GTP engine, this slice's main path. (a) `gtp_engine` (400
+    visits, graph search, noise pruning, uncertainty, subtree bias, root
+    symmetry pruning; ponder off) over a scripted session: clear_board, four
+    genmoves of alternating colour, kata-analyze b maxmoves 3 ownership
+    true, the same with `avoid b <its best move> 1`, kata-raw-nn 0,
+    genmove_debug b, quit, with `PathCopies` entered around it (launch
+    counts set to 0 before and read after, one descent launch a simulation);
+    each reply checked and printed with its seconds, root visits/s a
+    genmove; a profile of a B=1 search of the same params (launches and host
+    syncs a playout); then one `genmove b` through `python -m
+    katacoffee_tpu_torch gtp -config ... -model ...` in a subprocess, at
+    `cli_visits` (-override-config maxVisits); then a
+    ponder of `ponder_visits` and a genmove that starts from the pondered
+    root. (b) Each kernel held to its plain version on the session's copies
+    (noise pruning: all five scratch fields, rank_c included) and timed;
+    the descent also with an avoid_until mask that forbids lanes at depths
+    1 and more on the copy with the deepest levels (forbidden lanes hit
+    counted, at least one) and with one that forbids every lane (ignored).
+    (c) A float32 engine plays `cpu_moves` genmoves at `cpu_visits` visits
+    on the card and on the CPU: the same moves and root visit counts, root
+    and row winrates within GTP_WINRATE_TOL."""
+    import numpy as np
+    import torch
+
+    from katacoffee_tpu_torch.game import io as gio
+    from katacoffee_tpu_torch.search import mcts
+
+    eng, sp, cfg, visits = gtp_engine(dev)
+    log(f"gtp (a): {GTP_CFG} over for_tests_v2(): {visits} visits, useGraphSearch {sp.useGraphSearch}, "
+        f"useNoisePruning {sp.useNoisePruning}, useUncertainty {sp.useUncertainty}, subtreeValueBiasFactor "
+        f"{sp.subtreeValueBiasFactor}, rootSymmetryPruning {sp.rootSymmetryPruning}; run-s5200 bf16")
+    genmoves = ["genmove b", "genmove w", "genmove b", "genmove w"]
+    analyze = "kata-analyze b maxmoves 3 ownership true"
+    t = time.monotonic()
+    with PathCopies(snapshot_every) as copies:
+        session = gtp_session(eng, ["clear_board", *genmoves, analyze])
+        best = session[-1][1].split()[3]
+        session += gtp_session(eng, [f"{analyze} avoid b {best} 1", "kata-raw-nn 0", "genmove_debug b", "quit"])
+    wall = time.monotonic() - t
+    replies = {line: reply for line, reply, _ in session}
+    for line, reply, _ in session:
+        if not reply.startswith("="):
+            raise AssertionError(f"gtp: {line!r} answered {reply!r}")
+    moves = [reply[2:] for line, reply, _ in session if line.startswith("genmove")]
+    for m in moves:
+        gio.parse_loc(m, cfg)  # a move string
+    a1, a2 = replies[analyze], replies[f"{analyze} avoid b {best} 1"]
+    if " ownership " not in a1 or not 1 <= a1.count("info move") <= 3 or f"info move {best} " in a2:
+        raise AssertionError(f"gtp: the analyses do not hold 1-3 rows with ownership, or the avoided {best} shows")
+    if "whiteWin" not in replies["kata-raw-nn 0"]:
+        raise AssertionError("gtp: kata-raw-nn printed no evaluation")
+    genmove_s = [dt for line, _, dt in session if line.startswith("genmove")]
+    searches = len(genmove_s) + 2
+    log(f"gtp (a): session {wall:.3f} s; genmove seconds {[round(x, 3) for x in genmove_s]}, root visits/s "
+        f"{[round(visits / x, 1) for x in genmove_s]}; launches: descend_interior {copies.launches['descend_interior']} "
+        f"for {copies.sims} simulations run, gather_rows {copies.launches['gather_rows']} (shapes "
+        f"{sorted(copies.gathers)})")
+    copies.check_launches("gtp", 1)
+    if copies.sims != searches * visits:
+        raise AssertionError(f"gtp: {copies.sims} simulations run, not {searches} searches of {visits}")
+    deepest = max(copies.descents[1], key=lambda c: int(c[2].node_count[0]))
+
+    engine = eng.engine
+    roots = engine.state
+
+    def search(wrap=lambda name, fn: fn):
+        mcts.run_search(cfg, sp, wrap("net", engine.eval_fn), roots, profile_sims, device=dev)
+        torch.cuda.synchronize()
+
+    prof = phase_profile(dev, "gtp B=1 fresh", search, profile_sims)
+
+    t = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "katacoffee_tpu_torch", "gtp", "-config", GTP_CFG,
+                           "-override-config", f"maxVisits={cli_visits}", "-model", MODEL_DIR],
+                          input="genmove b\nquit\n", capture_output=True, text=True, timeout=300)
+    cli_s = time.monotonic() - t
+    cli_reply = proc.stdout.strip().splitlines()[0] if proc.stdout.strip() else ""
+    log(f"gtp (a): python -m katacoffee_tpu_torch gtp -config {GTP_CFG} -override-config maxVisits={cli_visits} "
+        f"-model {MODEL_DIR}: 'genmove b' -> {cli_reply!r}, exit {proc.returncode}, {cli_s:.1f} s with the "
+        f"process's start")
+    if proc.returncode != 0 or not cli_reply.startswith("= "):
+        raise AssertionError(f"gtp: the command failed: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    gio.parse_loc(cli_reply[2:], cfg)
+
+    engine.clear_board()
+    engine.reuse_enabled = True
+    engine.min_reuse_cap = engine._bucket_cap(max(visits, ponder_visits))
+    pondered = [done for _, done in engine.ponder_stream(ponder_visits, interval_visits=visits // 4)]
+    sims = [0]
+    kept = mcts._simulate_once
+
+    def counting(*args, **kwargs):
+        sims[0] += 1
+        return kept(*args, **kwargs)
+
+    mcts._simulate_once = counting
+    try:
+        t = time.monotonic()
+        _, res = engine.genmove(visits)
+        torch.cuda.synchronize()
+        reuse_s = time.monotonic() - t
+    finally:
+        mcts._simulate_once = kept
+    log(f"gtp (a): ponder {ponder_visits} visits (root visits by chunk {pondered}), then genmove {visits}: "
+        f"{sims[0]} playouts in {reuse_s:.3f} s, root {res.root_visits} visits")
+    if pondered[-1] != ponder_visits + 1 or sims[0] != visits + 1 - pondered[-1] or res.root_visits != visits + 1:
+        raise AssertionError("gtp: the genmove after a ponder did not start from the pondered root")
+    engine.reuse_enabled = False
+
+    checked = copies.check("gtp (b)", cfg)
+    n, dsp, tree, inputs, _ = deepest
+    B, _, A = tree.prior.shape
+    rng = np.random.default_rng(5)
+    until = rng.integers(2, 8, (B, 2, A)) * (rng.random((B, 2, A)) < 0.4)
+    forbid = check_path_descent(f"gtp (b) launch {n}, avoid_until at depths 1-6", cfg, dsp, tree, inputs, False,
+                                torch.from_numpy(until.astype(np.int32)).to(dev))
+    ignored = check_path_descent(f"gtp (b) launch {n}, every lane forbidden", cfg, dsp, tree, inputs, False,
+                                 torch.full((B, 2, A), 30, dtype=torch.int32, device=dev))
+    log(f"gtp (b): descent kernel == plain (leaf, depth, path, acts, edge visits, cs_raw, prior_c, child_c, ev_c, "
+        f"rank_c, caught) with avoid_until on launch {n}'s tree: {forbid['timed_levels']} levels, "
+        f"{forbid['forbidden_lanes']} forbidden lanes hit; with every lane forbidden (mask ignored): "
+        f"{ignored['timed_levels']} levels, {ignored['forbidden_lanes']} lanes hit")
+    if forbid["forbidden_lanes"] == 0 or ignored["forbidden_lanes"] != 0:
+        raise AssertionError("gtp (b): no forbidden lane was hit, or a mask that leaves no lane was not ignored")
+
+    t = time.monotonic()
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        e = gtp_engine(d, torch.float32)[0].engine
+        runs.append([e.genmove(cpu_visits) for _ in range(cpu_moves)])
+    card_cpu = {"moves": [a for a, _ in runs[0]], "max_winrate_diff": 0.0}
+    for (ca, cres), (pa, pres) in zip(*runs):
+        rows = [(m.action, m.visits) for m in cres.move_infos], [(m.action, m.visits) for m in pres.move_infos]
+        if ca != pa or rows[0] != rows[1] or cres.root_visits != pres.root_visits:
+            raise AssertionError(f"gtp (c): card and CPU part: {ca} {rows[0]} against {pa} {rows[1]}")
+        diffs = [abs(cres.root_winrate - pres.root_winrate)] + [
+            abs(x.winrate - y.winrate) for x, y in zip(cres.move_infos, pres.move_infos)]
+        card_cpu["max_winrate_diff"] = max(card_cpu["max_winrate_diff"], *diffs)
+    log(f"gtp (c): float32 engine, {cpu_moves} genmoves at {cpu_visits} visits on the card and the CPU: moves "
+        f"{[gio.action_to_string(a, cfg) for a in card_cpu['moves']]} equal, root and row visits equal, winrates "
+        f"within {card_cpu['max_winrate_diff']:.3g} ({time.monotonic() - t:.1f} s)")
+    if card_cpu["max_winrate_diff"] > GTP_WINRATE_TOL:
+        raise AssertionError(f"gtp (c): winrates part by more than {GTP_WINRATE_TOL}")
+    main_shape = (1, visits + 2, 8, cfg.policy_size)
+    return {"visits": visits, "wall_s": wall, "genmove_s": genmove_s, "moves": moves, "launches": copies.launches,
+            "sims": copies.sims, "profile": prof, "cli_s": cli_s, "cli_reply": cli_reply,
+            "ponder": {"pondered": pondered, "genmove_playouts": sims[0], "genmove_s": reuse_s},
+            "forbidden_lanes": forbid["forbidden_lanes"], "forbid_levels": forbid["timed_levels"],
+            "card_vs_cpu": card_cpu, **checked,
+            "gather_shape": main_shape if main_shape in checked["gather"] else next(iter(checked["gather"]))}
 
 
 PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_lookup", "_bias_keys", "_bias_avg",
@@ -2078,11 +2329,11 @@ def log_kernel_rows(gather_entry: dict, descend_entry: dict) -> None:
     def us(x):
         return "n/a" if x is None else f"{x * 1e3:.2f}"
 
-    rows = [(f"gatekeeper {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
+    rows = [(f"gtp {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
     for label, r in rows:
         log(f"  gather_rows {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
             f"torch.gather {us(r['library_ms'])}, plain {us(r['plain_ms'])}")
-    rows = [(f"gatekeeper B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
+    rows = [(f"gtp B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
     for label, r in rows:
         log(f"  descend_interior {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
             f"deepest game {r['max_levels']} levels, {r['us_per_level']:.3f} us a level")
@@ -2142,36 +2393,41 @@ def main() -> int:
         command = phase_selfplay_command(dev, cfg, work)
         log("phase 7: the trainer, on phase 6's shards")
         trainer = phase_trainer(dev, cfg, command["rows_dir"], positions, work)
-        log("phase 8: the gatekeeper (this slice's main path), card against CPU, and one loop cycle")
+        log("phase 8: the gatekeeper, card against CPU, and one loop cycle")
         gate = phase_gatekeeper(dev, cfg, work)
         gate["card_vs_cpu"] = phase_gate_card_vs_cpu(dev, cfg)
         gate["loop"] = phase_loop(dev, cfg, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    log("phase 9: profiles")
+    log("phase 9: the GTP engine (this slice's main path), its kernels' inputs, card against CPU")
+    gtp = phase_gtp(dev)
+
+    log("phase 10: profiles")
     profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
     ab = profiles.pop("randomization_ab")
     log("per playout: cudaLaunchKernel " + ", ".join(
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
-    # the kernels line reports the main path (phase 8 (a), the gatekeeper):
+    # the kernels line reports the main path (phase 9 (a), the GTP engine):
     # its launches, and each kernel's check and times on the inputs that
     # path gave it; the earlier paths' launches and times beside them (the
     # trainer's path, phase 7, launches neither)
-    shape = gate["gather_shape"]
-    t = gather_row(gate["gather"][shape], floor)
+    shape = gtp["gather_shape"]
+    t = gather_row(gtp["gather"][shape], floor)
     gather_entry = {
         "name": "gather_rows",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/gather_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
-        "launches": gate["launches"]["gather_rows"],
+        "launches": gtp["launches"]["gather_rows"],
+        "launches_gatekeeper_path": gate["launches"]["gather_rows"],
         "launches_selfplay_command_path": command["launches"]["gather_rows"],
         "launches_segment_path": selfplay["launches"]["gather_rows"],
         "launches_trainer_path": trainer["kernel_launches"]["gather_rows"],
-        "max_abs_err": max(kern["max_abs_err"], command["gather_max_abs_err"], gate["gather_max_abs_err"]),
+        "max_abs_err": max(kern["max_abs_err"], command["gather_max_abs_err"], gate["gather_max_abs_err"],
+                           gtp["gather_max_abs_err"]),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
@@ -2183,25 +2439,29 @@ def main() -> int:
         "launches_default_path": search["launches"]["gather_rows"],
         "launches_per_search_default_path": search["per_search"]["gather_rows"],
         "other_shapes": {
-            **{f"gatekeeper {list(s)}": gather_row(v, floor) for s, v in gate["gather"].items() if s != shape},
+            **{f"gtp {list(s)}": gather_row(v, floor) for s, v in gtp["gather"].items() if s != shape},
+            **{f"gatekeeper {list(s)}": gather_row(v, floor) for s, v in gate["gather"].items()},
             **{f"selfplay command {list(s)}": gather_row(v, floor) for s, v in command["gather"].items()},
             **{f"random inputs {list(s)}": gather_row(v, floor) for s, v in kern["timings"].items()},
         },
     }
-    timed = descent_row(gate["descent"][shape[0]], floor)
+    timed = descent_row(gtp["descent"][1], floor)
     descend_entry = {
         "name": "descend_interior",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/descend_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
         "also_replaces": "katacoffee_tpu/search/mcts.py:1267",
-        "launches": gate["launches"]["descend_interior"],
+        "launches": gtp["launches"]["descend_interior"],
+        "simulations_run_gtp": gtp["sims"],
+        "forbidden_lanes_hit": gtp["forbidden_lanes"],
+        "launches_gatekeeper_path": gate["launches"]["descend_interior"],
         "simulations_run_gatekeeper": gate["sims"],
         "launches_selfplay_command_path": command["launches"]["descend_interior"],
         "simulations_run_selfplay_command": command["sims"],
         "launches_segment_path": selfplay["launches"]["descend_interior"],
         "launches_trainer_path": trainer["kernel_launches"]["descend_interior"],
-        "max_abs_err": max(desc["max_abs_err"], *(v["max_abs_err"] for path in (command, gate)
+        "max_abs_err": max(desc["max_abs_err"], *(v["max_abs_err"] for path in (command, gate, gtp)
                                                   for v in path["descent"].values())),
         "ms": timed["ms"],
         "plain_ms": timed["plain_ms"],
@@ -2214,15 +2474,17 @@ def main() -> int:
         "shape": timed["shape"],
         "timed_levels": timed["timed_levels"],
         "other_trees": {
-            **{f"gatekeeper B={b}": descent_row(v, floor) for b, v in gate["descent"].items() if b != shape[0]},
+            **{f"gatekeeper B={b}": descent_row(v, floor) for b, v in gate["descent"].items()},
             **{f"selfplay command B={b}": descent_row(v, floor) for b, v in command["descent"].items()},
             **{f"grown {k} tree B=512": descent_row(v, floor) for k, v in desc["timed"].items()},
         },
         "simulations_run_segment_path": selfplay["sims"],
         "launches_default_path": search["launches"]["descend_interior"],
-        "near_tie_flips": desc["flips"] + sum(v["flips"] for p in (command, gate) for v in p["descent"].values()),
-        "games_compared": desc["games"] + sum(v["games"] for p in (command, gate) for v in p["descent"].values()),
-        "levels_compared": desc["levels"] + sum(v["levels_compared"] for p in (command, gate)
+        "near_tie_flips": desc["flips"] + sum(v["flips"] for p in (command, gate, gtp)
+                                              for v in p["descent"].values()),
+        "games_compared": desc["games"] + sum(v["games"] for p in (command, gate, gtp)
+                                              for v in p["descent"].values()),
+        "levels_compared": desc["levels"] + sum(v["levels_compared"] for p in (command, gate, gtp)
                                                 for v in p["descent"].values()),
         "ab_identical_games": search["ab_identical"],
         "ab_games": search["ab_games"],
@@ -2237,7 +2499,9 @@ def main() -> int:
     per_sim = [selfplay["segment_walls"][0] / selfplay["segment_sims"] * 1e3,
                command["segment_walls"][0] / command["segment_sims"] * 1e3]
     own = [r["own_s"] / r["wall_s"] for r in command["rows_runs"]]
-    log(f"phase 10: done; gatekeeper {gate['games']} games at {gate['visits']} visits in {gate['match_s']:.3f} s "
+    log(f"phase 11: done; gtp genmoves at {gtp['visits']} visits in "
+        + ", ".join(f"{x:.3f}" for x in gtp["genmove_s"]) + f" s ({gtp['profile']['launches_per_sim']:.0f} launches, "
+        f"{gtp['profile']['syncs_per_sim']:.2f} host syncs a playout); gatekeeper {gate['games']} games at {gate['visits']} visits in {gate['match_s']:.3f} s "
         f"({gate['games_per_s']:.3f} games/s, {gate['searched_vps']:.1f} searched visits/s, {gate['plies']} plies), "
         f"{gate['wins_a']}-{gate['wins_b']}-{gate['draws']}, candidate {gate['landed']}; loop cycle "
         f"{gate['loop']['wall_s']:.1f} s, {gate['loop']['export']} into {gate['loop']['landed']}; default B=512 600-visit search {search['vps']:.1f} visits/s; {SELFPLAY_METRIC} "
@@ -2253,6 +2517,8 @@ def main() -> int:
     log_kernel_rows(gather_entry, descend_entry)
     print(card_line(), flush=True)
     print(json.dumps({"trainer": trainer}), flush=True)
+    print(json.dumps({"gtp": {k: v for k, v in gtp.items() if k not in ("gather", "descent")}}, default=str),
+          flush=True)
     print(json.dumps({"gatekeeper": {k: v for k, v in gate.items() if k not in ("gather", "descent")}},
                      default=str), flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)

@@ -1,8 +1,8 @@
 """Subcommand dispatch for the port, `python -m katacoffee_tpu_torch <cmd>`
 (the JAX package's `katacoffee_tpu/cli.py`). The ported subcommands are
 `selfplay`, `shuffle`, `train`, `validate`, `checkpoint`, `gatekeeper`,
-`match`, `loop`, `summarize_sgfs` and `benchmark`; any other exits non-zero
-and says so."""
+`match`, `loop`, `summarize_sgfs`, `benchmark` and `gtp`; any other exits
+non-zero and says so."""
 
 from __future__ import annotations
 
@@ -40,6 +40,9 @@ Usage: python -m katacoffee_tpu_torch <subcommand> [args]
                tally SGF results (replayed on the GPU) and fit MLE Elos
   benchmark [-model MODEL_DIR] [-visits V] [-batch-sizes 1,16,64,256]
                search visits/s over game-batch sizes
+  gtp [-config FILE] [-override-config k=v,...] [-model MODEL_DIR]
+               GTP engine on stdin/stdout, searching on the GPU (uniform
+               priors without -model)
 
 Every other subcommand of `python -m katacoffee_tpu` is not ported yet.
 """
@@ -65,6 +68,26 @@ def _shuffle(args: list[str]) -> int:
     print(shuffle_data(a.data_dirs, a.out_dir, min_rows=a.min_rows, expand_window_per_row=a.expand_window_per_row,
                        taper_window_exponent=a.taper_window_exponent, keep_target_rows=a.keep_target_rows,
                        val_prop=a.val_prop, seed=a.seed))
+    return 0
+
+
+def _gtp(args: list[str]) -> int:
+    """`gtp [-model MODEL_DIR] ...`: the net's evaluator and its cached
+    full-head forward (kata-raw-nn, ownership) from the exported model,
+    both on the GPU (JAX cli.py:73-96)."""
+    from katacoffee_tpu_torch.command.gtp import main as gtp_main
+
+    if "-model" not in args:
+        gtp_main(args)
+        return 0
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.search.mcts import make_cached_raw_forward_fn, make_nn_eval_fn
+
+    i = args.index("-model")
+    model_dir = args[i + 1]
+    args = args[:i] + args[i + 2:]
+    model, cfg, _ = load_exported_model(model_dir)
+    gtp_main(args, cfg=cfg, eval_fn=make_nn_eval_fn(cfg, model), raw_fwd=make_cached_raw_forward_fn(cfg, model))
     return 0
 
 
@@ -94,6 +117,8 @@ def main(argv: list[str] | None = None) -> int:
         from katacoffee_tpu_torch.command.checkpoint import main as checkpoint_main
 
         return checkpoint_main(args)
+    if cmd == "gtp":
+        return _gtp(args)
     if cmd in _COMMANDS:
         import importlib
 

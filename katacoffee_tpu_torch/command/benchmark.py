@@ -36,12 +36,14 @@ def benchmark_search(
     device: str | torch.device | None = None,
     log=print,
     generator: torch.Generator | None = None,
+    warmups: dict | None = None,
 ) -> dict:
     """Returns {batch_size: visits_per_second} for fresh-tree searches of
     `num_visits` playouts from the initial position, on `device` (default
     `cuda`). Each rate is B * num_visits over the mean wall time of `reps`
     searches, timed between device synchronizations. A profile that draws
-    at the root (noise, sampled symmetries) draws from `generator`."""
+    at the root (noise, sampled symmetries) draws from `generator`. The
+    warm-up's seconds go to `warmups[batch_size]` where given."""
     dev = resolve_device(device)
     results = {}
     for B in batch_sizes:
@@ -49,6 +51,8 @@ def benchmark_search(
         t0 = time.monotonic()
         float(run_search(cfg, sp, eval_fn, states, num_visits, device=dev, generator=generator).stats.sum())
         warmup_s = time.monotonic() - t0
+        if warmups is not None:
+            warmups[B] = warmup_s
         total = torch.zeros((), device=dev)
         _sync(dev)
         t0 = time.monotonic()

@@ -285,14 +285,19 @@ def random_symmetry(generator: torch.Generator, shape=()) -> torch.Tensor:
     return torch.randint(0, NUM_SYMMETRIES, shape, generator=generator, device=generator.device)
 
 
-def stabilizer(cfg: GameConfig, state: GameState) -> list[list[int]]:
-    """For each game of the batch, the symmetries that fix its position
-    (board and last move); always contains 0."""
-    out = [[] for _ in range(state.board.shape[0])]
+def stabilizer_mask(cfg: GameConfig, state: GameState) -> torch.Tensor:
+    """[B, nsym] bool: which symmetries fix each game's position (board and
+    last move); column 0, the identity, is always set."""
+    cols = []
     for s in range(num_symmetries(cfg)):
         ts = apply_state(cfg, s, state)
         same = (ts.board == state.board).flatten(1).all(-1)
-        same &= (state.last_spot < 0) | ((ts.last_spot == state.last_spot) & (ts.last_dir == state.last_dir))
-        for b in torch.nonzero(same)[:, 0].tolist():
-            out[b].append(s)
-    return out
+        cols.append(same & ((state.last_spot < 0)
+                            | ((ts.last_spot == state.last_spot) & (ts.last_dir == state.last_dir))))
+    return torch.stack(cols, dim=1)
+
+
+def stabilizer(cfg: GameConfig, state: GameState) -> list[list[int]]:
+    """For each game of the batch, the symmetries that fix its position
+    (board and last move); always contains 0."""
+    return [torch.nonzero(row)[:, 0].tolist() for row in stabilizer_mask(cfg, state).cpu()]

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -56,7 +57,9 @@ def load_library(source: Path) -> ctypes.CDLL:
     lib = library_path(source)
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        # one temporary name per thread: threads of one process may build the
+        # same source at once (two checkouts whose kernel sources are equal)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -12,6 +12,9 @@ kernel in `descend_kernel.cu` (built at first use by `_build.py`) or raises.
 The kernel copies the candidate table into shared memory (int16, flat, -1
 padded to 16 bytes: `mcts._cand_table_i16`) and carries each next node's
 fields from the chosen lane, so a level waits on two global round trips.
+Two lanes follow the search options, each behind a flag: the policy ranks
+into the scratch's `rank_c` (useNoisePruning) and the `avoid_until` mask
+(`forbid_c`).
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ _FPU_PARENT, _FPU_VISITED_POLICY, _FPU_PARENT_WEIGHT = range(3)
 # The kernel's argument layout: Select's float and int constants, and the
 # tensors kc_descend_interior takes.
 _NUM_FLOATS = 16
-_NUM_INTS = 4
-_NUM_POINTERS = 21
+_NUM_INTS = 6
+_NUM_POINTERS = 25
 
 
 def table_bytes(area: int, lanes: int) -> int:
@@ -52,12 +55,14 @@ def table_bytes(area: int, lanes: int) -> int:
     return -(-(area + 1) * 5 * lanes * 2 // 16) * 16
 
 
-def select_constants(sp) -> tuple[np.ndarray, np.ndarray]:
+def select_constants(sp, forbid: bool = False) -> tuple[np.ndarray, np.ndarray]:
     """The SearchParams constants of `_selection_compact` as the kernel's
     `Select` struct: float32 values, each rounded the way torch rounds a
     Python scalar against a float32 tensor (a constant computed in Python,
     such as the prior's square, is rounded once), and a division by a Python
-    scalar as torch's CUDA multiply by the float32 reciprocal."""
+    scalar as torch's CUDA multiply by the float32 reciprocal. The last two
+    ints switch on the rank lane (useNoisePruning) and, with `forbid`, the
+    avoid mask."""
     f32 = np.float32
     if sp.fpuParentWeightByVisitedPolicy:
         fpu_mode = _FPU_VISITED_POLICY
@@ -88,6 +93,8 @@ def select_constants(sp) -> tuple[np.ndarray, np.ndarray]:
         fpu_mode,
         _POW_MODES.get(float(sp.fpuParentWeightByVisitedPolicyPow), 0),
         int(sp.useGraphSearch),
+        int(sp.useNoisePruning),
+        int(forbid),
     ], dtype=np.int32)
     assert (floats.size, ints.size) == (_NUM_FLOATS, _NUM_INTS)
     return floats, ints
@@ -115,6 +122,13 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _dummy(device: torch.device) -> torch.Tensor:
+    """The tensor passed for a lane whose flag is off: never read. Made
+    once per device, so a launch does not launch a fill kernel before it."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
     if t.dtype != dtype:
         raise TypeError(f"descend_interior: {name} must be {dtype}, got {t.dtype}")
@@ -124,11 +138,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None
         raise ValueError(f"descend_interior: {name} must be contiguous")
 
 
-def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, acts, scratch):
+def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, acts, scratch, avoid_until=None):
     """One launch of the fused interior descent; returns (leaf, leaf_depth)
     [B] int64 and `caught` [B] bool (stopped by a graph-search catch-up) and
     updates `tree.edge_visits`, `path`, `acts` and `scratch` in place, as
-    `mcts._descend_interior_plain` does.
+    `mcts._descend_interior_plain` does (with `avoid_until` [B, 2, A] int32
+    masking lanes, and under useNoisePruning the ranks of `tree.policy_rank`
+    [B, N, A] stored in `scratch.rank_c`).
 
     `cand` is the candidate table [area + 1, 5, C] as int16, flattened and
     -1 padded to `table_bytes(area, C)` (`mcts._cand_table_i16`); `tree` a
@@ -148,6 +164,9 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
     if nbytes > MAX_TABLE_BYTES:
         raise ValueError(f"descend_interior: a candidate table of {nbytes} bytes does not fit the "
                          f"{MAX_TABLE_BYTES} bytes of shared memory a block has")
+    dummy = _dummy(tree.stats.device)
+    rank = tree.policy_rank if sp.useNoisePruning else dummy
+    avoid = avoid_until if avoid_until is not None else dummy
     args = [
         ("last_spot", tree.states.last_spot, torch.int64, (B, N)),
         ("last_dir", tree.states.last_dir, torch.int64, (B, N)),
@@ -158,6 +177,9 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
         ("prior", tree.prior, torch.float32, (B, N, A)),
         ("stats", tree.stats, torch.float32, (B, N, 8)),
         ("self_stats", tree.self_stats, torch.float32, (B, N, 4)),
+        ("to_move", tree.states.to_move, torch.int8, (B, N)),
+        ("policy_rank", rank, torch.int32, (B, N, A) if sp.useNoisePruning else (1,)),
+        ("avoid_until", avoid, torch.int32, (B, 2, A) if avoid_until is not None else (1,)),
         ("node", node, torch.int64, (B,)),
         ("depth", depth, torch.int64, (B,)),
         ("active", active, torch.bool, (B,)),
@@ -167,6 +189,7 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
         ("prior_c", scratch.prior_c, torch.float32, (B, D, C)),
         ("child_c", scratch.child_c, torch.int32, (B, D, C)),
         ("ev_c", scratch.ev_c, torch.float32, (B, D, C)),
+        ("rank_c", scratch.rank_c, torch.float32, (B, D, C)),
     ]
     for name, t, dtype, shape in args:
         _check(name, t, dtype, shape)
@@ -181,11 +204,11 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
     if dev.index != torch.cuda.current_device():
         # the kernel launches on the current device
         with torch.cuda.device(dev):
-            return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
+            return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch, avoid_until)
     leaf = torch.empty((B,), dtype=torch.int64, device=dev)
     leaf_depth = torch.empty((B,), dtype=torch.int64, device=dev)
     caught = torch.empty((B,), dtype=torch.bool, device=dev)
-    floats, ints = select_constants(sp)
+    floats, ints = select_constants(sp, forbid=avoid_until is not None)
     lib = load_kernel()
     err = lib.kc_descend_interior(
         *(t.data_ptr() for _, t, _, _ in args),

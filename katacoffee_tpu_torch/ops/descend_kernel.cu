@@ -30,6 +30,22 @@
 // steps to the child. It stops at a terminal node, a missing child, a
 // catch-up or depth == D.
 //
+// Two lanes of the search options, each compiled in by a flag of Select (the
+// launch picks the kernel instantiated for the two flags, so a lane that is
+// off costs nothing) and read from its own tensor only when on (else the
+// pointer may be a dummy):
+//   * rank (useNoisePruning): each lane stores float(policy_rank[b, node,
+//     cand]) into the scratch's rank_c, 1e6 on a padding lane, for the
+//     backup's prefix sums;
+//   * forbid (avoid_until): a lane is forbidden where avoid_until[b, mover
+//     - 1, cand] > depth, mover the player to move at the node (the first
+//     node's is loaded, and it alternates down the path: every move passes
+//     the turn); a forbidden lane scores -inf, unless no lane with a prior
+//     >= 0 is left unforbidden (a warp vote), when the mask is ignored
+//     (`_avoid`, the JAX package's `keep`, search/mcts.py:764).
+// Both loads are in round trip (a) below, next to the compact entries, so
+// neither adds a dependent trip.
+//
 // Numerics: every operation is the plain torch version's, in its order, each
 // rounded to float32 (built with --fmad=false, IEEE division and square
 // root); a division by a Python scalar is torch's multiply by the float32
@@ -105,11 +121,12 @@ struct Select {
   float fpu_reduction_max, fpu_loss_prop, neg_wl_factor;
   float fpu_parent_weight, one_minus_fpu_parent_weight, visited_pow;
   float eps;
-  int stdev_on, fpu_mode, pow_mode, graph;
+  int stdev_on, fpu_mode, pow_mode, graph, rank_on, forbid_on;
 };
 constexpr int kNumFloats = 16;
-constexpr int kNumInts = 4;
-constexpr int kNumPointers = 21;  // kc_descend_interior's tensor arguments
+constexpr int kNumInts = 6;
+constexpr int kNumPointers = 25;  // kc_descend_interior's tensor arguments
+constexpr float kNoRank = 1e6f;   // rank_c on a padding lane
 // A block's shared memory on sm_90 (227 KB) less the mbarrier's 16 bytes.
 constexpr int kMaxTableBytes = 232432;
 
@@ -123,6 +140,9 @@ struct Args {
   const float* prior;             // [B, N, A]
   const float4* stats;            // [B, N, 8] as [B, N, 2] float4
   const float* self_stats;        // [B, N, 4]
+  const signed char* to_move;     // [B, N] int8, 1 or 2
+  const int* policy_rank;         // [B, N, A] (rank_on)
+  const int* avoid_until;         // [B, 2, A] (forbid_on)
   const long long* node0;         // [B]
   const long long* depth0;        // [B]
   const unsigned char* active0;   // [B] bool
@@ -132,6 +152,7 @@ struct Args {
   float* prior_c;                 // [B, D, C]
   int* child_c;                   // [B, D, C]
   float* ev_c;                    // [B, D, C]
+  float* rank_c;                  // [B, D, C] (rank_on)
   long long* leaf;                // [B]
   long long* leaf_depth;          // [B]
   unsigned char* caught;          // [B] bool, stopped by a catch-up
@@ -228,6 +249,7 @@ __device__ __forceinline__ unsigned score_key(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+template <bool kRank, bool kForbid>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 descend_interior_kernel(Args g, Select s) {
   __shared__ __align__(8) uint64_t bar;
@@ -257,11 +279,12 @@ descend_interior_kernel(Args g, Select s) {
   // utility: the first node's loaded here while the table arrives, every
   // later node's taken from the chosen lane of the level above.
   bool term = false;
-  int row = 0;
+  int row = 0, mover = 1;
   float ns_w = 0.0f, ns_u = 0.0f, ns_usq = 0.0f, self_u = 0.0f;
   if (active) {
     const long long bn = row0 + node;
     term = __ldg(g.terminal + bn) != 0;
+    if (kForbid) mover = __ldg(g.to_move + bn);
     row = cand_row(__ldg(g.last_spot + bn), __ldg(g.last_dir + bn), g.area);
     const float4 lo = __ldg(g.stats + bn * 2);
     ns_w = lo.y;
@@ -276,9 +299,12 @@ descend_interior_kernel(Args g, Select s) {
     const short* cand_r = cand_tab + row * C;
     const long long slot = (static_cast<long long>(b) * g.d + (depth - 1)) * C;
 
-    // round trip (a): the compact entries at the candidates
+    // round trip (a): the compact entries at the candidates, with the
+    // rank and forbid lanes
+    const long long arow = (static_cast<long long>(b) * 2 + min(max(mover - 1, 0), 1)) * g.a;
     int cand[kSlots], child[kSlots], evi[kSlots];
-    float pr[kSlots];
+    float pr[kSlots], rank[kSlots];
+    bool forbid[kSlots];
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
       const int c = lane + 32 * k;
@@ -286,11 +312,15 @@ descend_interior_kernel(Args g, Select s) {
       child[k] = -1;
       evi[k] = 0;
       pr[k] = -1.0f;
+      rank[k] = kNoRank;
+      forbid[k] = false;
       if (cand[k] >= 0) {
         const long long e = bn * g.a + cand[k];
         child[k] = __ldg(g.children + e);
         evi[k] = g.edge_visits[e];
         pr[k] = __ldg(g.prior + e);
+        if (kRank) rank[k] = static_cast<float>(__ldg(g.policy_rank + e));
+        if (kForbid) forbid[k] = static_cast<long long>(__ldg(g.avoid_until + arow + cand[k])) > depth;
       }
     }
     // round trip (b): each child's stats row and node fields
@@ -329,6 +359,7 @@ descend_interior_kernel(Args g, Select s) {
       g.prior_c[slot + c] = pr[k];
       g.child_c[slot + c] = child[k];
       g.ev_c[slot + c] = ev;
+      if (kRank) g.rank_c[slot + c] = rank[k];
       // _edge_stats_from_raw: lo = (visits, w, wsq, u)
       cvis[k] = lo.x;
       cw[k] = lo.y;
@@ -373,6 +404,15 @@ descend_interior_kernel(Args g, Select s) {
     float fpu = parent_u - s.fpu_reduction_max * sqrtf(mass);
     fpu = fpu + (s.neg_wl_factor - fpu) * s.fpu_loss_prop;
 
+    // _avoid: the mask holds only if some legal lane is left unforbidden
+    bool keep = false;
+    if (kForbid) {
+      bool open = false;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) open |= pr[k] >= 0.0f && !forbid[k];
+      keep = __any_sync(kFull, open);
+    }
+
     float best_v = KC_NEG_INF;
     int best_c = INT_MAX;
 #pragma unroll
@@ -381,7 +421,7 @@ descend_interior_kernel(Args g, Select s) {
       if (c >= C) continue;
       const float q = live[k] ? q_child[k] : fpu;
       float v = explore * fmaxf(pr[k], 0.0f) / (1.0f + w[k]) + q;
-      v = pr[k] < 0.0f ? KC_NEG_INF : v;
+      v = pr[k] < 0.0f || (forbid[k] && keep) ? KC_NEG_INF : v;
       if (best_c == INT_MAX || v > best_v) {
         best_v = v;
         best_c = c;
@@ -389,7 +429,9 @@ descend_interior_kernel(Args g, Select s) {
     }
     // the warp's best score, then the lowest candidate lane that has it:
     // a lane's own best is its lower lane on ties, and lanes c < 32 come
-    // before lanes c >= 32 (a lane with no candidate has key 0 and loses)
+    // before lanes c >= 32 (a thread with no lane c < C has key 0 and loses;
+    // a lane at -inf, illegal or forbidden, has the least key of a score, so
+    // where every lane is -inf the first one wins, as in torch.argmax)
     const unsigned key = best_c == INT_MAX ? 0u : score_key(best_v);
     const bool at_top = key == __reduce_max_sync(kFull, key);
     const unsigned low = __ballot_sync(kFull, at_top && best_c < 32);
@@ -425,6 +467,7 @@ descend_interior_kernel(Args g, Select s) {
     node = sel_child;
     depth += 1;
     active = depth < g.d;
+    mover = 3 - mover;
     term = next_term;
     row = next_row;
     ns_w = next_w;
@@ -451,8 +494,9 @@ extern "C" int kc_descend_layout() { return kNumFloats * 10000 + kNumInts * 100 
 extern "C" int kc_descend_interior(
     const void* last_spot, const void* last_dir, const void* terminal, const void* cand,
     const void* children, void* edge_visits, const void* prior, const void* stats,
-    const void* self_stats, const void* node0, const void* depth0, const void* active0,
-    void* path, void* acts, void* cs_raw, void* prior_c, void* child_c, void* ev_c,
+    const void* self_stats, const void* to_move, const void* policy_rank, const void* avoid_until,
+    const void* node0, const void* depth0, const void* active0,
+    void* path, void* acts, void* cs_raw, void* prior_c, void* child_c, void* ev_c, void* rank_c,
     void* leaf, void* leaf_depth, void* caught, int b, int n, int a, int c, int d, int area,
     const float* f, const int* i, void* stream) {
   if (b == 0) return 0;
@@ -461,27 +505,31 @@ extern "C" int kc_descend_interior(
     return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = table_bytes(area, c);
   if (bytes > kMaxTableBytes) return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(Args, Select) =
+      i[4] ? (i[5] ? descend_interior_kernel<true, true> : descend_interior_kernel<true, false>)
+           : (i[5] ? descend_interior_kernel<false, true> : descend_interior_kernel<false, false>);
   if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        descend_interior_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   Args g{static_cast<const long long*>(last_spot), static_cast<const long long*>(last_dir),
          static_cast<const unsigned char*>(terminal), static_cast<const short*>(cand),
          static_cast<const int*>(children), static_cast<int*>(edge_visits),
          static_cast<const float*>(prior), static_cast<const float4*>(stats),
-         static_cast<const float*>(self_stats), static_cast<const long long*>(node0),
+         static_cast<const float*>(self_stats), static_cast<const signed char*>(to_move),
+         static_cast<const int*>(policy_rank), static_cast<const int*>(avoid_until),
+         static_cast<const long long*>(node0),
          static_cast<const long long*>(depth0), static_cast<const unsigned char*>(active0),
          static_cast<long long*>(path), static_cast<long long*>(acts),
          static_cast<float4*>(cs_raw), static_cast<float*>(prior_c),
-         static_cast<int*>(child_c), static_cast<float*>(ev_c),
+         static_cast<int*>(child_c), static_cast<float*>(ev_c), static_cast<float*>(rank_c),
          static_cast<long long*>(leaf), static_cast<long long*>(leaf_depth),
          static_cast<unsigned char*>(caught), b, n, a, c, d, area, bytes};
   Select s{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
-           f[11], f[12], f[13], f[14], f[15], i[0], i[1], i[2], i[3]};
+           f[11], f[12], f[13], f[14], f[15], i[0], i[1], i[2], i[3], i[4], i[5]};
   static_assert(sizeof(Select) == (kNumFloats + kNumInts) * 4, "Select layout");
   const int blocks = (b + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  descend_interior_kernel<<<blocks, kWarpsPerBlock * 32, bytes, static_cast<cudaStream_t>(stream)>>>(g, s);
+  kernel<<<blocks, kWarpsPerBlock * 32, bytes, static_cast<cudaStream_t>(stream)>>>(g, s);
   return static_cast<int>(cudaGetLastError());
 }
 

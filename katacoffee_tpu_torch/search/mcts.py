@@ -18,16 +18,25 @@ What the port implements (file:line cites are the JAX package's):
   * the evaluator (`make_nn_eval_fn`, :359), with a random symmetry per
     evaluated row where `symmetry_randomize` is set, and its optimistic
     policy (`policy_opt`), which policyOptimism / rootPolicyOptimism blend
-    into new nodes' and the root's priors (`_blend_policy`, :499);
+    into new nodes' and the root's priors (`_blend_policy`, :499); the
+    serving forward with every head (`make_raw_forward_fn`, :279) and its
+    exact-keyed cache (`NNResultCache`, :293) for GTP's protocol surfaces;
   * uncertainty-weighted evaluations (useUncertainty: `_eval_weight`, :514),
     so node weights are fractional;
   * the root prior (`_make_root_prior`, :938): the early-game policy
-    temperature, Dirichlet noise and the hint's 2 % shift; the root
-    evaluation averaged over sampled symmetries (`_root_eval`, :442);
+    temperature, Dirichlet noise, the hint's 2 % shift, the avoid mask
+    `root_avoid` and root symmetry pruning (`_root_symmetry_prune`, :909);
+    the root evaluation averaged over sampled symmetries (`_root_eval`,
+    :442);
+  * the depth-limited avoid mask `avoid_until` [B, 2, A] (avoidMoveUntilByLoc)
+    at the root (`_select_action`'s `forbid`) and in the descent (the
+    compact `forbid_c` lanes, :1318);
   * graph search: transposition links by situation hash, the edge-visit
     catch-up (`want_catch_at`, :1209) and maxPlayoutDepthProp;
-  * value aggregation with value-based downweighting, the root-noise weight
-    subtraction and the subtree value bias (`_recompute_node`, :2205);
+  * value aggregation with noise pruning (policy-ordered prefix sums over
+    `Tree.policy_rank`, :2243), value-based downweighting, the root-noise
+    weight subtraction and the subtree value bias (`_recompute_node`,
+    :2205);
   * one playout (`_simulate_once`, :1167) with its `active` mask, the whole
     search on a fresh or a reused tree (`run_search`, :2371;
     `advance_root`, :2643; `continue_search`, :2561) and the readouts
@@ -93,8 +102,7 @@ NUM_SELF = 4
 
 class Tree(NamedTuple):
     """Array-of-trees state. Leading dims: [B, N] (games x node slots).
-    Every field of the JAX package's Tree is kept; `policy_rank` (noise
-    pruning, not ported) holds its neutral value."""
+    Every field of the JAX package's Tree is kept."""
 
     states: GameState  # fields [B, N, ...]
     stats: torch.Tensor  # [B, N, 8] f32, S_* channels
@@ -108,7 +116,8 @@ class Tree(NamedTuple):
     is_terminal: torch.Tensor  # [B, N] bool
     node_count: torch.Tensor  # [B] int64
     sit_hash: torch.Tensor  # [B, N, 2] int64 words of the uint32 situation hash
-    policy_rank: torch.Tensor  # [B, 1, 1] int32 (noise pruning off)
+    policy_rank: torch.Tensor  # [B, N, A] int32 each action's place in the node's policy-descending
+    #   order (useNoisePruning); a [B, 1, 1] dummy with noise pruning off
     bias_key: torch.Tensor  # [B, N] int64 subtree-value-bias slot
     last_bias_delta: torch.Tensor  # [B, N] f32 the node's last table contribution
     last_bias_weight: torch.Tensor  # [B, N] f32
@@ -153,8 +162,6 @@ class RootDraws(NamedTuple):
 
 def _check_supported(sp: SearchParams) -> None:
     unsupported = {
-        "useNoisePruning": sp.useNoisePruning,
-        "rootSymmetryPruning": sp.rootSymmetryPruning,
         "numSearchThreads>1": sp.numSearchThreads > 1,
         "graphSearchCatchUpLeakProb>0": sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0,
     }
@@ -253,6 +260,72 @@ def make_nn_eval_fn(
     return fn
 
 
+def make_raw_forward_fn(cfg: GameConfig, model):
+    """Full forward over a batch of GameStates on the model's device,
+    returning every head of the net as float32 numpy arrays (JAX
+    `make_raw_forward_fn`, mcts.py:279): the source of GTP's kata-raw-nn and
+    of the ownership reports. The search's EvalFn drops the auxiliary heads;
+    this serving path keeps them."""
+
+    @torch.no_grad()
+    def fn(states: GameState) -> dict:
+        out = model(*extract_features(cfg, states))
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+    return fn
+
+
+class NNResultCache:
+    """Serving-side NN result cache (JAX `NNResultCache`, mcts.py:293; the
+    reference's NNCacheTable, `cpp/neuralnet/nneval.h:18-42`) for the
+    protocol surfaces, which ask again for positions they asked for before
+    (kata-raw-nn, ownership over a tree that grew).
+
+    Keyed exactly, as the JAX cache is: the board's bytes, the player to
+    move and the whole recent-move ring (the features read recent moves
+    1-4, so the same board and last move reached in another order is
+    another input). LRU by dict insertion order. A batch whose every row
+    hits returns the stacked cached rows and runs nothing on the device;
+    any miss forwards the whole batch once and stores every row."""
+
+    def __init__(self, forward, capacity: int = 4096):
+        self._forward = forward
+        self._capacity = capacity
+        self._store: dict = {}
+        self.hits = 0
+        self.misses = 0
+
+    @staticmethod
+    def _keys(states: GameState) -> list[tuple]:
+        board, to_move, spots, dirs = (x.cpu().numpy() for x in (
+            states.board, states.to_move, states.recent_spots, states.recent_dirs))
+        return [(board[i].tobytes(), int(to_move[i]), spots[i].tobytes(), dirs[i].tobytes())
+                for i in range(board.shape[0])]
+
+    def __call__(self, states: GameState) -> dict:
+        keys = self._keys(states)
+        cached = [self._store.get(k) for k in keys]
+        if all(c is not None for c in cached):
+            self.hits += len(keys)
+            for k in keys:  # refresh the LRU order
+                self._store[k] = self._store.pop(k)
+            return {name: np.stack([c[name] for c in cached]) for name in cached[0]}
+        self.misses += len(keys)
+        out = self._forward(states)
+        for i, k in enumerate(keys):
+            self._store.pop(k, None)
+            self._store[k] = {name: v[i] for name, v in out.items()}
+        while len(self._store) > self._capacity:
+            self._store.pop(next(iter(self._store)))
+        return out
+
+
+def make_cached_raw_forward_fn(cfg: GameConfig, model, capacity: int = 4096) -> NNResultCache:
+    """`make_raw_forward_fn` behind an `NNResultCache`, as the gtp command
+    serves it."""
+    return NNResultCache(make_raw_forward_fn(cfg, model), capacity)
+
+
 def _need_generator(generator, what: str) -> torch.Generator:
     if generator is None:
         raise ValueError(f"katacoffee_tpu_torch search: {what} draws random numbers; pass a torch.Generator")
@@ -330,6 +403,15 @@ def _terminal_utility(states: GameState) -> torch.Tensor:
 
 def _stats_row(visits, w, wsq, u, usq, wl, draw):
     return torch.stack([visits, w, wsq, u, usq, wl, draw, torch.zeros_like(w)], dim=-1)
+
+
+def _policy_ranks(raw_prior: torch.Tensor) -> torch.Tensor:
+    """[B, A] int32: each action's place in the policy-descending order (0 =
+    the highest policy; JAX `_policy_ranks`, mcts.py:538). Both sorts are
+    stable, as jnp.argsort is: illegal moves (-1, clamped to 1e-30) and
+    equal priors keep their action order."""
+    order = torch.argsort(-raw_prior.clamp(min=1e-30), dim=-1, stable=True)
+    return torch.argsort(order, dim=-1, stable=True).to(torch.int32)
 
 
 def _bias_keys(cfg: GameConfig, states: GameState) -> torch.Tensor:
@@ -483,9 +565,20 @@ def _fpu_parent_utility(sp: SearchParams, node_stats, self_u, mass_visited) -> t
     return parent_u
 
 
-def _selection_compact(sp: SearchParams, prior, cs: dict, node_stats, self_u) -> torch.Tensor:
+def _avoid(selection, prior, forbid) -> torch.Tensor:
+    """The avoid mask applied last (JAX mcts.py:1141-1146, :763-765): a
+    forbidden move scores -inf, so no forcing rule picks it, unless the mask
+    would leave the node no legal move, where it is ignored."""
+    if forbid is None:
+        return selection
+    keep = ((prior >= 0.0) & ~forbid).any(-1)
+    return torch.where(forbid & keep[:, None], -math.inf, selection)
+
+
+def _selection_compact(sp: SearchParams, prior, cs: dict, node_stats, self_u, forbid=None) -> torch.Tensor:
     """PUCT scores [B, C] over compact lanes with the non-root semantics of
-    _select_action, -inf on illegal lanes; the chosen lane is their argmax."""
+    _select_action, -inf on illegal lanes and on the lanes `forbid` [B, C]
+    masks (`_avoid`); the chosen lane is their argmax."""
     child_w = cs["w"]
     has_child = cs["live"]
     explore_scaling = _explore_scaling(sp, child_w.sum(-1), node_stats)
@@ -496,12 +589,13 @@ def _selection_compact(sp: SearchParams, prior, cs: dict, node_stats, self_u) ->
     fpu = fpu + (-sp.winLossUtilityFactor - fpu) * sp.fpuLossProp
     q = torch.where(has_child, cs["u"], fpu[:, None])
     selection = explore_scaling[:, None] * legal_prior / (1.0 + child_w) + q
-    return torch.where(prior < 0, -math.inf, selection)
+    return _avoid(torch.where(prior < 0, -math.inf, selection), prior, forbid)
 
 
-def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None) -> torch.Tensor:
+def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None, forbid=None) -> torch.Tensor:
     """Vectorized selectBestChildToDescend (searchexplorehelpers.cpp:304-451)
-    for nodes [B]; `is_root` [B] bool. Returns the chosen action [B]."""
+    for nodes [B]; `is_root` [B] bool; `forbid` [B, A] the avoided moves
+    (`_avoid`). Returns the chosen action [B]."""
     B = node.shape[0]
     bidx = torch.arange(B, device=node.device)
     prior = torch.where(is_root[:, None], tree.root_prior, tree.prior[bidx, node])
@@ -539,7 +633,7 @@ def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None) -> torc
     avg_wpv = (hint_w + pwpv) / (cs["cvis"][bidx, hint_safe] + 1.0)
     force_hint = has_hint & (hint_w + avg_wpv < 0.8 * child_w.amax(-1)) & (prior[bidx, hint_safe] >= 0)
     selection[bidx, hint_safe] = torch.where(force_hint, math.inf, selection[bidx, hint_safe])
-    return torch.argmax(selection, dim=-1)
+    return torch.argmax(_avoid(selection, prior, forbid), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -549,16 +643,19 @@ def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None) -> torc
 
 def init_tree(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, root_states: GameState,
               max_nodes: int, *, generator: torch.Generator | None = None, draws: RootDraws | None = None,
-              turn_number: torch.Tensor | None = None, root_hint: torch.Tensor | None = None) -> Tree:
+              turn_number: torch.Tensor | None = None, root_hint: torch.Tensor | None = None,
+              root_avoid: torch.Tensor | None = None) -> Tree:
     """Allocate trees and evaluate the roots (beginSearch without reuse).
     `turn_number` [B] drives the early-game temperature (default the roots'
-    num_turns); `root_hint` [B] is each game's rootHintLoc action (-1 none).
+    num_turns); `root_hint` [B] is each game's rootHintLoc action (-1 none);
+    `root_avoid` [B, A] bool the root moves avoided (`_make_root_prior`).
     Root draws come from `draws` or `generator`."""
     _check_supported(sp)
     draws = RootDraws() if draws is None else draws
     res = _root_eval(cfg, sp, eval_fn, root_states, generator, draws.syms)
     return _tree_from_root_eval(cfg, sp, root_states, res, max_nodes, generator=generator,
-                                gamma=draws.gamma, turn_number=turn_number, root_hint=root_hint)
+                                gamma=draws.gamma, turn_number=turn_number, root_hint=root_hint,
+                                root_avoid=root_avoid)
 
 
 def _add_dirichlet_noise(sp: SearchParams, policy, legal, generator=None, gamma=None) -> torch.Tensor:
@@ -583,12 +680,37 @@ def _add_dirichlet_noise(sp: SearchParams, policy, legal, generator=None, gamma=
     return torch.where(legal, noise * w + policy * (1.0 - w), 0.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _sym_action_table(cfg: GameConfig, device: torch.device) -> torch.Tensor:
+    """[nsym, A] int64: each action's image under each symmetry (JAX
+    `_sym_action_table`, mcts.py:885)."""
+    return torch.from_numpy(S.action_table(cfg).astype(np.int64)).to(device)
+
+
+def _root_symmetry_prune(cfg: GameConfig, states: GameState, prior: torch.Tensor) -> torch.Tensor:
+    """rootSymmetryPruning (JAX `_root_symmetry_prune`, mcts.py:909): every
+    legal move that is not the least action of its orbit under the
+    symmetries fixing the root position (board and last move) gets -1, so
+    one move of each orbit is searched (8 times fewer on the empty
+    board)."""
+    A = prior.shape[-1]
+    stab = S.stabilizer_mask(cfg, states)  # [B, nsym], the identity always in
+    table = _sym_action_table(cfg, prior.device)
+    min_img = torch.where(stab[:, :, None], table[None], A).amin(1)
+    canonical = min_img >= torch.arange(A, device=prior.device)[None, :]
+    return torch.where(canonical, prior, -1.0)
+
+
 def _make_root_prior(cfg: GameConfig, sp: SearchParams, policy, legal, root_states: GameState,
-                     generator=None, gamma=None, turn_number=None, root_hint=None) -> torch.Tensor:
+                     generator=None, gamma=None, turn_number=None, root_hint=None,
+                     root_avoid=None) -> torch.Tensor:
     """Root policy (searchhelpers.cpp maybeAddPolicyNoiseAndTemp): the
     early-game interpolated temperature, Dirichlet noise, and the
     rootHintLoc shift of 2 % of the legal mass onto the hint move
-    (searchhelpers.cpp:206-218); -1 on illegal moves."""
+    (searchhelpers.cpp:206-218); then the avoided moves `root_avoid` [B, A]
+    made illegal, unless that leaves a game no legal move (the mask is then
+    ignored), and root symmetry pruning, which never prunes the hint move;
+    -1 on illegal moves."""
     if turn_number is None:
         turn_number = root_states.num_turns
     turn_number = turn_number.to(torch.float32)
@@ -607,12 +729,25 @@ def _make_root_prior(cfg: GameConfig, sp: SearchParams, policy, legal, root_stat
         shifted = policy * (1.0 - prop)
         shifted[bidx, hint_safe] += torch.where(legal, policy, 0.0).sum(-1) * prop
         policy = torch.where(hint_legal[:, None], shifted, policy)
-    return torch.where(legal, policy, -1.0)
+    if root_avoid is not None:
+        masked = legal & ~root_avoid.to(device=legal.device, dtype=torch.bool)
+        legal = torch.where(masked.any(-1, keepdim=True), masked, legal)
+        policy = torch.where(legal, policy, 0.0)
+    out = torch.where(legal, policy, -1.0)
+    if sp.rootSymmetryPruning:
+        pruned = _root_symmetry_prune(cfg, root_states, out)
+        if root_hint is not None:
+            bidx = torch.arange(out.shape[0], device=out.device)
+            hint_safe = root_hint.clamp(min=0)
+            restore = (root_hint >= 0) & (out[bidx, hint_safe] >= 0)
+            pruned[bidx, hint_safe] = torch.where(restore, out[bidx, hint_safe], pruned[bidx, hint_safe])
+        out = pruned
+    return out
 
 
 def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameState, res: EvalResult,
                          max_nodes: int, *, generator=None, gamma=None, turn_number=None,
-                         root_hint=None) -> Tree:
+                         root_hint=None, root_avoid=None) -> Tree:
     B = root_states.board.shape[0]
     N = max_nodes
     A = cfg.policy_size
@@ -626,7 +761,7 @@ def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameSta
     root_policy = _blend_policy(res, sp.rootPolicyOptimism)
     raw_prior = torch.where(legal, root_policy, -1.0)
     root_prior = _make_root_prior(cfg, sp, root_policy, legal, root_states, generator, gamma, turn_number,
-                                  root_hint)
+                                  root_hint, root_avoid)
 
     root_term = root_states.done
     term_util = _terminal_utility(root_states)
@@ -656,7 +791,8 @@ def _tree_from_root_eval(cfg: GameConfig, sp: SearchParams, root_states: GameSta
         is_terminal=rows((), torch.bool, False, root_term),
         node_count=torch.ones((B,), dtype=torch.int64, device=dev),
         sit_hash=rows((2,), torch.int64, 0, situation_hash(cfg, root_states)),
-        policy_rank=torch.zeros((B, 1, 1), dtype=torch.int32, device=dev),
+        policy_rank=(rows((A,), torch.int32, 0, _policy_ranks(raw_prior)) if sp.useNoisePruning
+                     else torch.zeros((B, 1, 1), dtype=torch.int32, device=dev)),
         bias_key=rows((), torch.int64, 0, _bias_keys(cfg, root_states) if use_bias else None),
         last_bias_delta=rows((), torch.float32, 0.0, None),
         last_bias_weight=rows((), torch.float32, 0.0, None),
@@ -682,6 +818,7 @@ class LevelScratch(NamedTuple):
     prior_c: torch.Tensor  # [B, D, C] f32 raw prior, -1 on padding lanes
     child_c: torch.Tensor  # [B, D, C] int32 child index, -1 missing
     ev_c: torch.Tensor  # [B, D, C] f32 edge visits
+    rank_c: torch.Tensor  # [B, D, C] f32 policy rank (useNoisePruning; else untouched), 1e6 on padding lanes
 
 
 def make_level_scratch(cfg: GameConfig, batch: int, max_depth: int, device) -> LevelScratch:
@@ -694,23 +831,34 @@ def make_level_scratch(cfg: GameConfig, batch: int, max_depth: int, device) -> L
         prior_c=torch.zeros(shape, dtype=torch.float32, device=device),
         child_c=torch.full(shape, -1, dtype=torch.int32, device=device),
         ev_c=torch.zeros(shape, dtype=torch.float32, device=device),
+        rank_c=torch.zeros(shape, dtype=torch.float32, device=device),
     )
 
 
-def _interior_level(cfg, sp: SearchParams, tree: Tree, bidx, node):
-    """One interior level for nodes [B] (`bidx` = arange(B)): the candidate
-    actions [B, C], the node's compact lanes as a LevelScratch of [B, C]
-    fields, and the PUCT scores [B, C]."""
+def _interior_level(cfg, sp: SearchParams, tree: Tree, bidx, node, depth=None, avoid_until=None):
+    """One interior level for nodes [B] (`bidx` = arange(B)) at `depth` [B]:
+    the candidate actions [B, C], the node's compact lanes as a LevelScratch
+    of [B, C] fields (rank_c None with noise pruning off), and the PUCT
+    scores [B, C]. `avoid_until` [B, 2, A] forbids, for the player to move
+    at the node, the actions whose entry exceeds the depth (`forbid_c`, JAX
+    mcts.py:1318-1323)."""
     cand, valid = _cand_lanes(cfg, tree.states, bidx, node)
     child_c = _compact_row(tree.children[bidx, node], cand, valid, -1)
     ev_c = _compact_row(tree.edge_visits[bidx, node], cand, valid, 0).to(torch.float32)
     prior_c = _compact_row(tree.prior[bidx, node], cand, valid, -1.0)
+    rank_c = None
+    if sp.useNoisePruning:
+        rank_c = _compact_row(tree.policy_rank[bidx, node].to(torch.float32), cand, valid, 1e6)
+    forbid_c = None
+    if avoid_until is not None:
+        pidx = (tree.states.to_move[bidx, node].to(torch.int64) - 1).clamp(0, 1)
+        forbid_c = _compact_row(avoid_until[bidx, pidx], cand, valid, 0) > depth[:, None]
     cs_raw = gather_rows(tree.stats, child_c)
     cs = _edge_stats_from_raw(tree, bidx, node, cs_raw, child_row=child_c, evis_row=ev_c)
     selection = _selection_compact(
-        sp, prior_c, cs, tree.stats[bidx, node], tree.self_stats[bidx, node, F_U]
+        sp, prior_c, cs, tree.stats[bidx, node], tree.self_stats[bidx, node, F_U], forbid_c
     )
-    return cand, LevelScratch(cs_raw, prior_c, child_c, ev_c), selection
+    return cand, LevelScratch(cs_raw, prior_c, child_c, ev_c, rank_c), selection
 
 
 def _want_catch(sp: SearchParams, ev, cvis, has_child) -> torch.Tensor:
@@ -723,13 +871,15 @@ def _want_catch(sp: SearchParams, ev, cvis, has_child) -> torch.Tensor:
     return has_child & (ev < cvis - 0.5)
 
 
-def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth: int, act_mask=None):
+def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth: int, act_mask=None,
+                  avoid_until=None):
     """The root level of descent, at full width from the carried root child
     stats. Returns (path, acts) [B, max_depth + 1] for the playout, the
     root's action act0 [B], (node, depth, walk) [B] after the level (`walk`:
     the games whose interior descent goes on) and the root's catch-up
     [B]. The traversed root edge of each game in `act_mask` (default all)
-    is counted in `tree.edge_visits`."""
+    is counted in `tree.edge_visits`. `avoid_until` [B, 2, A] forbids the
+    root mover the actions whose entry is above 0 (`forbid0`)."""
     B = root_cs.shape[0]
     dev = root_cs.device
     bidx = torch.arange(B, device=dev)
@@ -740,7 +890,11 @@ def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth
 
     root_term = tree.is_terminal[:, 0]
     cs0 = _edge_stats_from_raw(tree, bidx, zero, root_cs)
-    act0 = _select_action(sp, tree, zero, torch.ones_like(root_term), cs=cs0)
+    forbid0 = None
+    if avoid_until is not None:
+        pidx0 = (tree.states.to_move[:, 0].to(torch.int64) - 1).clamp(0, 1)
+        forbid0 = avoid_until[bidx, pidx0] > 0
+    act0 = _select_action(sp, tree, zero, torch.ones_like(root_term), cs=cs0, forbid=forbid0)
     child0 = tree.children[bidx, 0, act0].to(torch.int64)
     has_child0 = child0 >= 0
     catch0 = _want_catch(
@@ -757,24 +911,28 @@ def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth
 
 
 def _descend_interior_plain(cfg, sp: SearchParams, tree: Tree, node, depth, active, path, acts,
-                            scratch: LevelScratch):
+                            scratch: LevelScratch, avoid_until=None):
     """The interior levels of descent on compact lanes, all B games in lock
     step with one host sync per level, from (node, depth, active) after the
     root level down to the leaf. Per level and active game: the lanes go to
-    `scratch` slot depth-1, the chosen lane to `acts[depth]` (also where the
-    child is missing or caught up), and on moving on the edge visit to
-    `tree.edge_visits` and the child to `path`; all in place. Stops at a
-    terminal node, a missing child, a graph-search catch-up or depth ==
-    max_depth (the scratch's D). Returns (leaf, leaf_depth, caught) [B]."""
+    `scratch` slot depth-1 (rank_c only with noise pruning), the chosen lane
+    to `acts[depth]` (also where the child is missing or caught up), and on
+    moving on the edge visit to `tree.edge_visits` and the child to `path`;
+    all in place. `avoid_until` [B, 2, A] masks lanes (`_interior_level`).
+    Stops at a terminal node, a missing child, a graph-search catch-up or
+    depth == max_depth (the scratch's D). Returns (leaf, leaf_depth,
+    caught) [B]."""
     B = node.shape[0]
     bidx = torch.arange(B, device=node.device)
     max_depth = scratch.child_c.shape[1]
     caught = torch.zeros_like(active)
     while bool(active.any()):
         term = tree.is_terminal[bidx, node]
-        cand, lanes, selection = _interior_level(cfg, sp, tree, bidx, node)
+        cand, lanes, selection = _interior_level(cfg, sp, tree, bidx, node, depth, avoid_until)
         slot = (depth - 1).clamp(min=0)
         for buf, val in zip(scratch, lanes):
+            if val is None:
+                continue
             keep = active.reshape((B,) + (1,) * (val.dim() - 1))
             buf[bidx, slot] = torch.where(keep, val, buf[bidx, slot])
 
@@ -795,14 +953,14 @@ def _descend_interior_plain(cfg, sp: SearchParams, tree: Tree, node, depth, acti
 
 
 def _descend_interior(cfg, sp: SearchParams, tree: Tree, node, depth, active, path, acts,
-                      scratch: LevelScratch):
+                      scratch: LevelScratch, avoid_until=None):
     """The interior descent: `_descend_interior_plain` on CPU tensors, else
     one launch of the fused CUDA kernel (`ops.descend.descend_interior`),
     which raises on anything it does not take. No fallback."""
     if tree.stats.device.type == "cpu" and node.device.type == "cpu":
-        return _descend_interior_plain(cfg, sp, tree, node, depth, active, path, acts, scratch)
+        return _descend_interior_plain(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_until)
     cand = _cand_table_i16(cfg, node.device)
-    return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch)
+    return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch, avoid_until)
 
 
 def _hash_lookup(tree: Tree, new_hash, expanding):
@@ -815,13 +973,16 @@ def _hash_lookup(tree: Tree, new_hash, expanding):
 
 
 def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth: int,
-                   root_cs: torch.Tensor, scratch: LevelScratch, active: torch.Tensor | None = None) -> torch.Tensor:
+                   root_cs: torch.Tensor, scratch: LevelScratch, active: torch.Tensor | None = None,
+                   avoid_until: torch.Tensor | None = None) -> torch.Tensor:
     """One playout per game, updating `tree` in place; a game outside
     `active` [B] (default all) changes nothing. `root_cs` [B, A, 8] is the
     root's child-stats gather carried across the simulations of one search:
     only the root child this playout went through changes, so it is patched
     here (in place) and returned. `scratch` holds the interior levels' lanes
-    from the descent to the backup."""
+    from the descent to the backup. `avoid_until` [B, 2, A] int32: the
+    player p may not play action a at depth d while avoid_until[b, p-1, a]
+    > d (avoidMoveUntilByLoc)."""
     B, N, A = tree.prior.shape
     dev = tree.stats.device
     bidx = torch.arange(B, device=dev)
@@ -831,8 +992,9 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     use_bias = sp.subtreeValueBiasFactor != 0.0
 
     # ---------------- Descent ----------------
-    path, acts, act0, node, depth, walk, caught0 = _descend_root(sp, tree, root_cs, max_depth, active)
-    leaf, leaf_depth, caught = _descend_interior(cfg, sp, tree, node, depth, walk, path, acts, scratch)
+    path, acts, act0, node, depth, walk, caught0 = _descend_root(sp, tree, root_cs, max_depth, active, avoid_until)
+    leaf, leaf_depth, caught = _descend_interior(cfg, sp, tree, node, depth, walk, path, acts, scratch,
+                                                 avoid_until)
     caught = (caught | caught0) & act_mask
     # the stopping edge's flat action: the root's, or the recorded lane
     # mapped through the leaf's candidate table
@@ -892,6 +1054,8 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     upd(tree.stats, _stats_row(one, w_new, w_new * w_new, u_init, u_init * u_init, wl_new, d_new))
     upd(tree.self_stats, torch.stack([u_raw, wl_new, d_new, w_new], dim=-1))
     upd(tree.prior, new_prior)
+    if sp.useNoisePruning:
+        upd(tree.policy_rank, _policy_ranks(new_prior))
     upd(tree.parent, leaf)
     upd(tree.parent_action, action)
     upd(tree.is_terminal, new_terminal)
@@ -941,7 +1105,7 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     for lvl in range(int(torch.where(act_mask, limit, 0).max()), 0, -1):
         n = path[:, lvl]
         on_path = (lvl <= limit) & (n >= 0) & (lvl <= leaf_depth) & act_mask
-        cs_raw, _, child_c, ev_c = (x[:, lvl - 1] for x in scratch)  # views: patches land
+        cs_raw, prior_c, child_c, ev_c, rank_c = (x[:, lvl - 1] for x in scratch)  # views: patches land
         pa = acts[:, lvl]
         at_stop = leaf_depth == lvl
         child_c[bidx, pa] = torch.where(at_stop & (new_child >= 0), new_child, child_c[bidx, pa])
@@ -951,7 +1115,7 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
         pchild = child_c[bidx, pa]
         prow = tree.stats[bidx, pchild.clamp(min=0).to(torch.int64)]
         cs_raw[bidx, pa] = torch.where((pchild >= 0)[:, None], prow, cs_raw[bidx, pa])
-        _recompute_node(sp, tree, n, on_path, cs_raw=cs_raw, lanes=(child_c, ev_c))
+        _recompute_node(sp, tree, n, on_path, cs_raw=cs_raw, lanes=(child_c, ev_c, prior_c, rank_c))
 
     # root level, full width, from the carried root child stats
     rchild = tree.children[bidx, 0, act0]
@@ -967,22 +1131,43 @@ def _norm_cdf(z):
 
 def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes=None) -> None:
     """recomputeNodeStats for nodes [B] where `mask` (searchupdatehelpers.cpp:
-    152-337): aggregate the child edges with the root-noise weight
-    subtraction and value-based downweighting, update the subtree value
-    bias entry, and add the node's (biased) own eval; one row write per
-    node. `cs_raw` [B, A', 8] supplies the children's raw stat rows; `lanes`
-    = (child_row, evis_row) supplies compact [B, C] lane views for interior
-    nodes, which are never the root."""
+    152-337): aggregate the child edges with noise pruning, the root-noise
+    weight subtraction and value-based downweighting, update the subtree
+    value bias entry, and add the node's (biased) own eval; one row write
+    per node. `cs_raw` [B, A', 8] supplies the children's raw stat rows;
+    `lanes` = (child_row, evis_row, prior_row, rank_row) supplies compact
+    [B, C] lane views for interior nodes, which are never the root."""
     B = node.shape[0]
     bidx = torch.arange(B, device=node.device)
     if cs_raw is None:
         cs_raw = _gather_child_stats(tree, bidx, node)
-    child_row, evis_row = (None, None) if lanes is None else lanes
+    child_row, evis_row, prior_row, rank_row = (None,) * 4 if lanes is None else lanes
     cs = _edge_stats_from_raw(tree, bidx, node, cs_raw, child_row=child_row, evis_row=evis_row)
     cw, cu, cwl, cdraw, cusq, cwsq = cs["w"], cs["u"], cs["wl"], cs["draw"], cs["usq"], cs["wsq"]
 
     cw_used = cw
-    if lanes is None and sp.rootNoiseEnabled and (sp.chosenMoveSubtract > 0 or sp.chosenMovePrune > 0):
+    if sp.useNoisePruning:
+        # pruneNoiseWeight, the JAX package's vectorized form (mcts.py:2243-
+        # 2271): exclusive prefix sums in policy-descending order, as masked
+        # sums over the predecessors of each action (rank[a'] < rank[a]);
+        # the ranks of a compact lane subset keep their order
+        raw_prior = (tree.prior[bidx, node] if lanes is None else prior_row).clamp(min=1e-30)
+        rank = tree.policy_rank[bidx, node] if lanes is None else rank_row
+        before = rank[:, :, None] < rank[:, None, :]  # [B, A', A]: a' precedes a
+
+        def prefix(x):
+            return torch.where(before, x[:, :, None], 0.0).sum(1)
+
+        cum_w, cum_uw, cum_p = prefix(cw), prefix(cw * cu), prefix(raw_prior)
+        gap = cum_uw / cum_w.clamp(min=_EPS) - cu
+        share = cum_w * raw_prior / cum_p.clamp(min=1e-30)
+        excess = (cw - 2.0 * share).clamp(min=0.0)
+        sub = torch.where((gap > 0) & (cum_w > 0),
+                          excess * (1.0 - torch.exp(-gap / sp.noisePruneUtilityScale)), 0.0)
+        if sp.noisePruningCap < 1e30:
+            sub = sub.clamp(max=sp.noisePruningCap)
+        cw_used = cw - sub
+    elif lanes is None and sp.rootNoiseEnabled and (sp.chosenMoveSubtract > 0 or sp.chosenMovePrune > 0):
         # root noise subtraction without noise pruning (searchupdatehelpers.cpp:199-209)
         max_w = cw.amax(-1)
         subtract = (max_w / 64.0).clamp(max=sp.chosenMoveSubtract)
@@ -1071,7 +1256,8 @@ def _root_child_stats_raw(tree: Tree) -> torch.Tensor:
     )
 
 
-def _run_to_target(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, target, max_sims: int) -> int:
+def _run_to_target(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, target, max_sims: int,
+                   avoid_until=None) -> int:
     """Playouts until every root has `target` visits (a float or [B]), at
     most `max_sims`; a game at its target changes nothing. Returns the
     simulations run. Each playout adds at most one visit to a root, so the
@@ -1086,7 +1272,7 @@ def _run_to_target(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, target, m
             break
         for _ in range(min(need, max_sims - rounds)):
             active = tree.stats[:, 0, S_VISITS] < target
-            root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch, active)
+            root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch, active, avoid_until)
             rounds += 1
     return rounds
 
@@ -1121,31 +1307,33 @@ def run_search(
     re-rooted at the played child (`advance_root`) and playouts run until
     every root has num_sims + 1 visits, at most `num_sims` of them.
 
-    `root_hint` [B] is each game's rootHintLoc action (-1 none). The root's
-    random draws come from `draws` where given, else from `generator`, a
+    `root_hint` [B] is each game's rootHintLoc action (-1 none); `root_avoid`
+    [B, A] bool masks root moves (avoidMoves/allowMoves; a mask that leaves
+    a game no legal move is ignored); `avoid_until` [B, 2, A] int32 gates the
+    descent: player p may not take action a at depth d while
+    avoid_until[b, p-1, a] > d (avoidMoveUntilByLoc). The root's random
+    draws come from `draws` where given, else from `generator`, a
     torch.Generator on `device`; a search that needs one and has neither
     raises. With `with_diag` it also returns {"rounds": simulations run,
-    "start_visits": [B] root visits before them}. Avoid masks are not ported
-    and raise."""
-    for name, arg in (("root_avoid", root_avoid), ("avoid_until", avoid_until)):
-        if arg is not None:
-            raise NotImplementedError(f"katacoffee_tpu_torch search: {name} is not ported yet")
+    "start_visits": [B] root visits before them}."""
     _check_supported(sp)
     dev = resolve_device(device)
     root_states = root_states.map(lambda x: x.to(dev))
     if root_hint is not None:
         root_hint = root_hint.to(device=dev, dtype=torch.int64)
+    if avoid_until is not None:
+        avoid_until = avoid_until.to(device=dev, dtype=torch.int32)
     if reuse_tree is None:
         if max_nodes is None:
             max_nodes = num_sims + 2
         tree = init_tree(cfg, sp, eval_fn, root_states, max_nodes, generator=generator, draws=draws,
-                         root_hint=root_hint)
+                         root_hint=root_hint, root_avoid=root_avoid)
         B = tree.stats.shape[0]
         max_depth = _max_depth(cfg, sp)
         root_cs = _root_child_stats_raw(tree)
         scratch = make_level_scratch(cfg, B, max_depth, dev)
         for _ in range(num_sims):
-            root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch)
+            root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch, avoid_until=avoid_until)
         rounds = num_sims
         start_visits = torch.ones((B,), dtype=torch.float32, device=dev)
     else:
@@ -1153,9 +1341,10 @@ def run_search(
             raise ValueError("katacoffee_tpu_torch search: reuse_tree needs reuse_actions")
         tree = advance_root(cfg, sp, eval_fn, reuse_tree, reuse_actions.to(dev), root_states,
                             generator=generator, draws=draws,
-                            reuse_ok=None if reuse_ok is None else reuse_ok.to(dev), root_hint=root_hint)
+                            reuse_ok=None if reuse_ok is None else reuse_ok.to(dev), root_hint=root_hint,
+                            root_avoid=root_avoid)
         start_visits = tree.stats[:, 0, S_VISITS].clone()
-        rounds = _run_to_target(cfg, sp, eval_fn, tree, float(num_sims + 1), num_sims)
+        rounds = _run_to_target(cfg, sp, eval_fn, tree, float(num_sims + 1), num_sims, avoid_until)
     if with_diag:
         return tree, {"rounds": rounds, "start_visits": start_visits}
     return tree
@@ -1163,15 +1352,18 @@ def run_search(
 
 @torch.no_grad()
 def continue_search(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_more_sims: int,
-                    target_visits) -> Tree:
+                    target_visits, avoid_until: torch.Tensor | None = None) -> Tree:
     """Continue a search at the same root until each game's root has
     `target_visits` visits (a float or [B]), at most `max_more_sims` more
     playouts: the interruptible half of the search loop. The tree must have
-    the node capacity for the final target. Updates `tree` in place and
-    returns it."""
+    the node capacity for the final target. `avoid_until` [B, 2, A] as in
+    `run_search`. Updates `tree` in place and returns it."""
     _check_supported(sp)
-    target = torch.as_tensor(target_visits, dtype=torch.float32, device=tree.stats.device)
-    _run_to_target(cfg, sp, eval_fn, tree, target, max_more_sims)
+    dev = tree.stats.device
+    target = torch.as_tensor(target_visits, dtype=torch.float32, device=dev)
+    if avoid_until is not None:
+        avoid_until = avoid_until.to(device=dev, dtype=torch.int32)
+    _run_to_target(cfg, sp, eval_fn, tree, target, max_more_sims, avoid_until)
     return tree
 
 
@@ -1179,7 +1371,8 @@ def continue_search(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tr
 def advance_root(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree, actions: torch.Tensor,
                  root_states: GameState, *, generator: torch.Generator | None = None,
                  draws: RootDraws | None = None, reuse_ok: torch.Tensor | None = None,
-                 turn_number: torch.Tensor | None = None, root_hint: torch.Tensor | None = None) -> Tree:
+                 turn_number: torch.Tensor | None = None, root_hint: torch.Tensor | None = None,
+                 root_avoid: torch.Tensor | None = None) -> Tree:
     """Re-root each game's tree at the child reached by `actions` [B], the
     reference's beginSearch tree reuse (search.cpp:262-331), as a compaction:
     the nodes reachable from the new root along first-parent chains, within
@@ -1189,7 +1382,8 @@ def advance_root(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree,
     played child does not exist, or where `reuse_ok` [B] is False, get a
     fresh root from a batched evaluation of `root_states`. Both root priors
     are re-tempered and re-noised, as beginSearch does (`draws.gamma` for
-    the fresh one, `draws.gamma_reused` for the reused one). Index gathers
+    the fresh one, `draws.gamma_reused` for the reused one), and `root_avoid`
+    [B, A] masks both (`_make_root_prior`). Index gathers
     replace the JAX package's one-hot matmuls; the payloads are integers or
     exact copies, so the result is the same. Returns a new Tree."""
     _check_supported(sp)
@@ -1200,7 +1394,7 @@ def advance_root(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree,
     draws = RootDraws() if draws is None else draws
     res = _root_eval(cfg, sp, eval_fn, root_states, generator, draws.syms)
     fresh = _tree_from_root_eval(cfg, sp, root_states, res, N, generator=generator, gamma=draws.gamma,
-                                 turn_number=turn_number, root_hint=root_hint)
+                                 turn_number=turn_number, root_hint=root_hint, root_avoid=root_avoid)
 
     new_root = tree.children[bidx, 0, actions.to(torch.int64)].to(torch.int64)
     has = new_root >= 0
@@ -1259,7 +1453,12 @@ def advance_root(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree,
     reused_prior[:, 0] = fresh.prior[:, 0]
     reused_raw = fresh.prior[:, 0]
     reused_root_prior = _make_root_prior(cfg, sp, reused_raw.clamp(min=0.0), reused_raw >= 0, root_states,
-                                         generator, draws.gamma_reused, turn_number, root_hint)
+                                         generator, draws.gamma_reused, turn_number, root_hint, root_avoid)
+    reused_rank = tree.policy_rank
+    if sp.useNoisePruning:
+        # the reused root's ranks come afresh from `res`, as its prior does
+        reused_rank = g(tree.policy_rank)
+        reused_rank[:, 0] = fresh.policy_rank[:, 0]
     reused = Tree(
         states=tree.states.map(g),
         stats=torch.where(live[:, :, None], g(tree.stats), 0.0),
@@ -1273,7 +1472,7 @@ def advance_root(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree,
         is_terminal=live & g(tree.is_terminal),
         node_count=kept.sum(1),
         sit_hash=g(tree.sit_hash),
-        policy_rank=tree.policy_rank,
+        policy_rank=reused_rank,
         bias_key=g(tree.bias_key) if sp.subtreeValueBiasFactor != 0.0 else tree.bias_key,
         last_bias_delta=last_bd,
         last_bias_weight=last_bw,

@@ -25,6 +25,36 @@ class Logger:
             self._files.append(f)
         return f
 
+    @classmethod
+    def from_config(cls, cfg, default_to_stdout: bool = False, default_to_stderr: bool = False) -> "Logger":
+        """A logger from the reference's config keys (`Logger(&cfg,...)`,
+        cpp/core/logger.cpp), as the JAX package's `Logger.from_config`:
+        `logFile` one exact file; `logDir` one timestamped file per run in
+        the dir; `logDirDated` the same under a YYYY-MM-DD subdir;
+        `logToStdout` / `logToStderr` echo every line. logTimeStamp and
+        logConfigContents are read and ignored (timestamps are always on)."""
+        import os
+
+        logger = cls(
+            log_to_stdout=cfg.get_bool("logToStdout", default_to_stdout),
+            log_to_stderr=cfg.get_bool("logToStderr", default_to_stderr),
+        )
+        cfg.get_bool("logTimeStamp", True)
+        cfg.get_bool("logConfigContents", True)
+        now = datetime.datetime.now()
+        stamp = now.strftime("%Y%m%d-%H%M%S") + f"-{os.getpid()}"
+        if cfg.contains("logFile"):
+            logger.add_file(cfg.get_string("logFile"))
+        if cfg.contains("logDir"):
+            d = cfg.get_string("logDir")
+            os.makedirs(d, exist_ok=True)
+            logger.add_file(os.path.join(d, f"log{stamp}.log"))
+        if cfg.contains("logDirDated"):
+            d = os.path.join(cfg.get_string("logDirDated"), now.strftime("%Y-%m-%d"))
+            os.makedirs(d, exist_ok=True)
+            logger.add_file(os.path.join(d, f"log{stamp}.log"))
+        return logger
+
     def write(self, msg: str):
         stamp = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S%z")
         line = f"{stamp}: {msg}\n"

@@ -11,7 +11,10 @@ a warp has threads), under three selection profiles and a depth cap, and
 under the selfplay and gatekeeper profiles on trees that graph search
 built, with transpositions, where descents stop at edge-visit catch-ups
 (the gatekeeper's with fractional S_W rows from uncertainty weighting,
-optimistic priors and the FPU visited-policy pow 1.0). Leaf, depth,
+optimistic priors and the FPU visited-policy pow 1.0), and under the GTP
+engine's profile (`for_tests_v2()`: noise pruning, so the scratch's rank_c
+lane) with an `avoid_until` mask, on a game of which every lane is
+forbidden (the mask is then ignored). Leaf, depth,
 caught, path, acts, edge visits and the scratch slots must be equal; the
 scratch's stat rows also equal the JAX package's gather. The PUCT scores
 agree within 1e-6, not exactly: the emulation sums the lanes in the order of
@@ -60,6 +63,7 @@ PROFILES = {
                           valueWeightExponent=0.0),
     "selfplay": dataclasses.asdict(SearchParams.for_selfplay()),
     "gatekeeper": dataclasses.asdict(SearchParams.for_gatekeeper()),
+    "options": dataclasses.asdict(SearchParams.for_tests_v2()),
 }
 BOARDS = {"5x5": (TB.GameConfig(5, 5, 4), "tinynet"), "9x9": (TB.GameConfig(9, 9, 4), "uniform")}
 
@@ -90,9 +94,12 @@ def _pow(x, e):
     return special[e]() if e in special else np.power(x, F(e))
 
 
-def _scores(sp, ns, self_u, pr, w, live, q_child):
-    """The PUCT scores of one node's lanes, as the kernel computes them."""
+def _scores(sp, ns, self_u, pr, w, live, q_child, forbid):
+    """The PUCT scores of one node's lanes, as the kernel computes them:
+    -inf on an illegal lane, and on a forbidden one where some legal lane is
+    not forbidden."""
     C = len(pr)
+    keep = any(pr[c] >= 0 and not forbid[c] for c in range(C))
     total_w = _row_sum(w)
     mass = _row_sum([max(pr[c], F(0)) if live[c] else F(0) for c in range(C)])
     factor = F(1)
@@ -122,7 +129,7 @@ def _scores(sp, ns, self_u, pr, w, live, q_child):
     for c in range(C):
         q = q_child[c] if live[c] else fpu
         v = explore * max(pr[c], F(0)) / (F(1) + w[c]) + q
-        out.append(F(-np.inf) if pr[c] < 0 else v)
+        out.append(F(-np.inf) if pr[c] < 0 or (forbid[c] and keep) else v)
     return out
 
 
@@ -136,21 +143,25 @@ def _first_max(sel):
     return best
 
 
-def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_first_max):
+def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_until=None, pick=_first_max):
     """The kernel's descent over CPU tensors, updated in place through numpy
     views, choosing each level's lane with `pick(scores)`. As in the kernel,
     only the first node's fields (terminal flag, candidate row, stats row,
-    own utility) are read from the tree; every later node's come with the
-    child lane the level above chose, and an edge visit is written as that
-    lane's loaded count + 1, never read back. Returns (leaf, leaf_depth,
-    caught) and {(game, depth): scores} of each non-terminal level."""
+    own utility, and with `avoid_until` the player to move) are read from
+    the tree; every later node's come with the child lane the level above
+    chose (the mover alternates), and an edge visit is written as that
+    lane's loaded count + 1, never read back. Under noise pruning each lane
+    stores its policy rank. Returns (leaf, leaf_depth, caught) and
+    {(game, depth): scores} of each non-terminal level."""
     cand_tab = TM._cand_table_np(cfg.x_size, cfg.y_size, cfg.win_len)
     st = tree.states
     last_spot, last_dir = st.last_spot.numpy(), st.last_dir.numpy()
     term_t, children, prior = tree.is_terminal.numpy(), tree.children.numpy(), tree.prior.numpy()
     stats, self_stats, ev_t = tree.stats.numpy(), tree.self_stats.numpy(), tree.edge_visits.numpy()
+    to_move, ranks = st.to_move.numpy(), tree.policy_rank.numpy()
+    avoid = None if avoid_until is None else avoid_until.numpy()
     path_n, acts_n = path.numpy(), acts.numpy()
-    cs_raw, prior_c, child_c, ev_c = (x.numpy() for x in scratch)
+    cs_raw, prior_c, child_c, ev_c, rank_c = (x.numpy() for x in scratch)
     B, N, _ = children.shape
     D, C = child_c.shape[1:]
     leaf, leaf_depth = node.clone().numpy(), depth.clone().numpy()
@@ -167,8 +178,9 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
         n, d, on = int(node[b]), int(depth[b]), bool(active[b])
         if on:
             term, cand, ns, self_u = fields(b, n)
+            mover = int(to_move[b, n])
         while on:
-            kids, pr, w, live, q_child, evs, cvis, lanes = [], [], [], [], [], [], [], []
+            kids, pr, w, live, q_child, evs, cvis, lanes, forbid = [], [], [], [], [], [], [], [], []
             for c in range(C):
                 a = int(cand[c])
                 kid, evi, p = (int(children[b, n, a]), int(ev_t[b, n, a]), prior[b, n, a]) if a >= 0 else (-1, 0, F(-1))
@@ -177,6 +189,9 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
                 raw = stats[b, kid] if on_board else np.zeros(8, F)
                 cs_raw[b, d - 1, c], prior_c[b, d - 1, c] = raw, p
                 child_c[b, d - 1, c], ev_c[b, d - 1, c] = kid, ev
+                if sp.useNoisePruning:
+                    rank_c[b, d - 1, c] = F(ranks[b, n, a]) if a >= 0 else F(1e6)
+                forbid.append(avoid is not None and a >= 0 and int(avoid[b, min(max(mover - 1, 0), 1), a]) > d)
                 is_live = kid >= 0 and ev > 0
                 kids.append(kid)
                 pr.append(p)
@@ -188,7 +203,7 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
                 lanes.append(fields(b, kid) if on_board else None)
             if term:
                 break
-            sel = _scores(sp, ns, self_u, pr, w, live, q_child)
+            sel = _scores(sp, ns, self_u, pr, w, live, q_child, forbid)
             scores[(b, d)] = sel
             best = pick(sel)
             acts_n[b, d] = best
@@ -197,7 +212,7 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, pick=_firs
                 break
             ev_t[b, n, cand[best]] = evs[best] + 1
             path_n[b, d + 1] = kids[best]
-            n, d = kids[best], d + 1
+            n, d, mover = kids[best], d + 1, 3 - mover
             term, cand, ns, self_u = lanes[best]
             on = d < D
         leaf[b], leaf_depth[b] = n, d
@@ -232,18 +247,31 @@ def _eval_fn(cfg, evals):
 
 
 @functools.lru_cache(maxsize=None)
-def _mid_search_tree(board, graph=False, gating=False):
+def _mid_search_tree(board, graph=False, gating=False, options=False):
     """A tree 30 playouts in; with `graph`, 80 playouts in under the selfplay
     profile, whose graph search linked a transposition on 5x5; with
     `gating`, 150 playouts in (the gating visits) under the gatekeeper
     profile (graph search, uncertainty-weighted evaluations, so fractional
     S_W rows, and optimistic priors), from other roots (seed 0), on which
-    it links transpositions on 5x5."""
+    it links transpositions on 5x5; with `options`, 80 playouts in under
+    `for_tests_v2()` (noise pruning, so policy ranks in every node)."""
     cfg, evals = BOARDS[board]
     roots = _random_roots(cfg, 8, seed=0 if gating else len(board))
-    sp = SearchParams.for_gatekeeper() if gating else SearchParams.for_selfplay() if graph else SearchParams()
+    sp = (SearchParams.for_tests_v2() if options else SearchParams.for_gatekeeper() if gating
+          else SearchParams.for_selfplay() if graph else SearchParams())
     return TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 150 if gating else 80 if graph else 30, device="cpu",
                          generator=torch.Generator().manual_seed(0))
+
+
+def _avoid_until(tree, seed=3):
+    """[B, 2, A] int32 avoid depths: about a third of each game's actions
+    forbidden to either player until depth 1-3, and every action of game 0
+    forbidden to both until depth 30 (so the mask is ignored there)."""
+    rng = np.random.default_rng(seed)
+    B, _, A = tree.children.shape
+    until = rng.integers(1, 4, (B, 2, A)) * (rng.random((B, 2, A)) < 0.35)
+    until[0] = 30
+    return torch.from_numpy(until.astype(np.int32))
 
 
 def _descent_inputs(board, sp, max_depth=None):
@@ -252,11 +280,13 @@ def _descent_inputs(board, sp, max_depth=None):
     leaves it). Under graph search every interior edge with two or more
     visits loses one, as a transposition leaves an edge behind its child, so
     that descents stop at catch-ups; on the gatekeeper's tree only the edges
-    out of every third node slot do, so that descents also go deeper."""
+    out of every third node slot do, so that descents also go deeper (and
+    on the options tree, which is not caught up)."""
     cfg, _ = BOARDS[board]
-    base = _mid_search_tree(board, sp.useGraphSearch, sp.useUncertainty)
+    base = _mid_search_tree(board, sp.useGraphSearch, sp.useUncertainty and not sp.useNoisePruning,
+                            sp.useNoisePruning)
     tree = base._replace(edge_visits=base.edge_visits.clone())
-    if sp.useGraphSearch:
+    if sp.useGraphSearch and not sp.useNoisePruning:
         inner = tree.edge_visits[:, 1:]
         behind = inner >= 2
         if sp.useUncertainty:
@@ -273,6 +303,7 @@ def _descent_inputs(board, sp, max_depth=None):
     scratch.prior_c.copy_(torch.from_numpy(rng.random(scratch.prior_c.shape).astype(F)))
     scratch.child_c.copy_(torch.from_numpy(rng.integers(-1, N, scratch.child_c.shape).astype(np.int32)))
     scratch.ev_c.copy_(torch.from_numpy(rng.integers(0, 5, scratch.ev_c.shape).astype(F)))
+    scratch.rank_c.copy_(torch.from_numpy(rng.integers(0, 100, scratch.rank_c.shape).astype(F)))
     return cfg, tree, (node, depth, active, path, acts, scratch)
 
 
@@ -290,11 +321,12 @@ def _copy(tree, state):
 def _check_against_plain(board, profile, max_depth=None):
     sp = SearchParams(**PROFILES[profile])
     cfg, tree, state = _descent_inputs(board, sp, max_depth)
+    avoid = _avoid_until(tree) if profile == "options" else None
     t_p, node, depth, active, path_p, acts_p, sc_p = _copy(tree, state)
     t_e, _, _, _, path_e, acts_e, sc_e = _copy(tree, state)
     leaf_p, ld_p, caught_p = TM._descend_interior_plain(cfg, sp, t_p, node, depth, active, path_p, acts_p,
-                                                        sc_p)
-    leaf_e, ld_e, caught_e, scores = _emulate(cfg, sp, t_e, node, depth, active, path_e, acts_e, sc_e)
+                                                        sc_p, avoid)
+    leaf_e, ld_e, caught_e, scores = _emulate(cfg, sp, t_e, node, depth, active, path_e, acts_e, sc_e, avoid)
 
     assert torch.equal(leaf_e, leaf_p) and torch.equal(ld_e, ld_p) and torch.equal(caught_e, caught_p)
     assert torch.equal(path_e, path_p) and torch.equal(acts_e, acts_p)
@@ -320,9 +352,17 @@ def _check_against_plain(board, profile, max_depth=None):
     assert levels, "no interior level was selected"
     bidx = torch.arange(node.shape[0])
     for d in levels:
-        _, _, sel = TM._interior_level(cfg, sp, tree, bidx, path_p[:, d].clamp(min=0))
+        _, _, sel = TM._interior_level(cfg, sp, tree, bidx, path_p[:, d].clamp(min=0),
+                                       torch.full_like(depth, d), avoid)
         for b in [b for b, dd in scores if dd == d]:
             np.testing.assert_allclose(np.asarray(scores[(b, d)]), sel[b].numpy(), rtol=0, atol=1e-6)
+    if avoid is not None:
+        # forbidden lanes were scored -inf on some level, and on game 0,
+        # whose every lane is forbidden, the mask was ignored
+        hit = [np.isneginf(scores[k]).sum() > 0 for k in scores if k[0] > 0]
+        assert any(hit) and all(np.isfinite(scores[k]).any() for k in scores)
+        assert any(k[0] == 0 for k in scores), "game 0 reached no interior level"
+        assert (sc_p.rank_c < 1e6).any()
     return ld_p, leaf_p, caught_p, t_p
 
 
@@ -336,6 +376,7 @@ def test_emulated_kernel_matches_plain_descent(board, profile):
         assert (w != torch.round(w)).float().mean() > 0.5, "the gating tree's S_W rows are not fractional"
     if profile in ("selfplay", "gatekeeper"):
         assert caught.any(), "no descent stopped at a catch-up"
+    if profile in ("selfplay", "gatekeeper", "options"):
         kids = tree.children.to(torch.int64)
         b = torch.arange(kids.shape[0])[:, None, None].expand_as(kids)
         parents = torch.zeros(tree.stats.shape[:2], dtype=torch.int64).index_put_(
@@ -416,8 +457,10 @@ def test_constants_are_rounded_as_torch_rounds_python_scalars():
     assert floats.dtype == np.float32 and ints.dtype == np.int32
     assert floats[3] == F(1) / F(sp.cpuctExplorationBase)
     assert floats[7] == F(sp.cpuctUtilityStdevPrior**2)
-    assert list(ints) == [1, 1, 3, 0]  # stdev factor on, fpu by visited policy, pow 2 = x * x, no graph
-    assert list(descend.select_constants(SearchParams.for_selfplay())[1]) == [0, 1, 3, 1]
+    # stdev factor on, fpu by visited policy, pow 2 = x * x, no graph, no rank lane, no avoid mask
+    assert list(ints) == [1, 1, 3, 0, 0, 0]
+    assert list(descend.select_constants(SearchParams.for_selfplay())[1]) == [0, 1, 3, 1, 0, 0]
+    assert list(descend.select_constants(SearchParams.for_tests_v2(), forbid=True)[1]) == [1, 1, 2, 1, 1, 1]
 
 
 def test_layout_constants_match_the_kernel_source():

@@ -332,16 +332,16 @@ def test_gating_entry_points_refuse_the_cpu_without_cuda(tmp_path):
 
 
 def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
-    """`train`, `shuffle`, `validate` and `checkpoint` dispatch to their
-    commands (each here stubbed to echo its arguments); `gtp` and unknown
-    subcommands exit 2 and say they are not ported."""
+    """`train`, `shuffle`, `validate`, `checkpoint` and `gtp` dispatch to
+    their commands (each here stubbed to echo its arguments); `analysis` and
+    unknown subcommands exit 2 and say they are not ported."""
     from katacoffee_tpu_torch import cli
-    from katacoffee_tpu_torch.command import checkpoint, selfplay, train, validate
+    from katacoffee_tpu_torch.command import checkpoint, gtp, selfplay, train, validate
     from katacoffee_tpu_torch.dataio import shuffle
 
     assert cli.main([]) == 0
     out = capsys.readouterr().out
-    for cmd in ("selfplay", "train", "shuffle", "validate", "checkpoint"):
+    for cmd in ("selfplay", "train", "shuffle", "validate", "checkpoint", "gtp"):
         assert cmd in out
     seen = []
     monkeypatch.setattr(selfplay, "main", lambda argv: seen.append(("selfplay", argv)))
@@ -359,7 +359,46 @@ def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
     assert seen[4][:3] == ("shuffle", ["d1", "d2"], "o")
     assert seen[4][3] == {"min_rows": 5, "expand_window_per_row": 0.4, "taper_window_exponent": 0.65,
                           "keep_target_rows": None, "val_prop": 0.1, "seed": 2}
+    monkeypatch.setattr(gtp, "main", lambda argv, **kw: seen.append(("gtp", argv, kw)))
+    assert cli.main(["gtp", "-config", "c.cfg"]) == 0
+    assert seen[5] == ("gtp", ["-config", "c.cfg"], {})
     capsys.readouterr()
-    for cmd in ("gtp", "nonsense"):
+    for cmd in ("analysis", "nonsense"):
         assert cli.main([cmd]) == 2
         assert f"{cmd} is not ported" in capsys.readouterr().err
+
+
+GTP_MODULES = ("game/io.py", "search/timecontrols.py", "search/ownership.py", "program/engine.py",
+               "command/gtp.py")
+
+
+def test_the_gtp_modules_are_checked():
+    """The GTP slice's modules are among the sources checked above and
+    among the modules imported without the reference package (the JAX
+    package's pure-Python io and timecontrols are copied, not imported)."""
+    sources = _port_sources()
+    imported = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in PORT.rglob("*.py")}
+    for rel in GTP_MODULES:
+        assert PORT / rel in sources, rel
+        assert ".".join(Path(rel).with_suffix("").parts) in imported, rel
+
+
+def test_gtp_entry_points_refuse_the_cpu_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from katacoffee_tpu_torch import cli
+    from katacoffee_tpu_torch.command import gtp
+    from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.program.engine import Engine
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    cfg, sp = GameConfig(), SearchParams.for_tests_v2()
+    model = str(ROOT / "tests/goldens/tinynet")
+    for run in (
+        lambda: Engine(cfg, sp),
+        lambda: gtp.GTPEngine(cfg, sp),
+        lambda: gtp.main(["-config", str(ROOT / "configs/gtp_example.cfg")]),
+        lambda: cli.main(["gtp", "-model", model]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()

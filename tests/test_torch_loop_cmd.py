@@ -126,7 +126,7 @@ def test_benchmark_main_reports_each_batch_size(capsys):
 def test_cli_runs_the_gating_subcommands(capsys, monkeypatch):
     """`gatekeeper`, `match`, `loop`, `summarize_sgfs` and `benchmark`
     dispatch to their commands' main (each stubbed to echo its arguments)
-    and are listed in the help; `gtp` still exits 2."""
+    and are listed in the help; `analysis` still exits 2."""
     from katacoffee_tpu_torch.command import benchmark, gatekeeper, loop, match, summarize_sgfs
 
     assert cli.main(["--help"]) == 0
@@ -138,8 +138,8 @@ def test_cli_runs_the_gating_subcommands(capsys, monkeypatch):
         monkeypatch.setattr(module, "main", lambda argv, cmd=cmd: seen.append((cmd, argv)))
         assert cli.main([cmd, "-x", cmd]) == 0
     assert seen == [(c, ["-x", c]) for c in cli._COMMANDS]
-    assert cli.main(["gtp"]) == 2
-    assert "gtp is not ported" in capsys.readouterr().err
+    assert cli.main(["analysis"]) == 2
+    assert "analysis is not ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("text", ["", "xSize = 6\nwinLen = 3\nuseUncertainty = false\npolicyOptimism = 0.5\n"

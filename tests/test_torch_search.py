@@ -249,28 +249,19 @@ def test_selection_branches_match_jax(extra):
 @pytest.mark.parametrize(
     "kw,flag",
     [
-        (dict(useNoisePruning=True), "useNoisePruning"),
         (dict(numSearchThreads=2), "numSearchThreads"),
-        (dict(rootSymmetryPruning=True), "rootSymmetryPruning"),
         (dict(useGraphSearch=True, graphSearchCatchUpLeakProb=0.1), "graphSearchCatchUpLeakProb"),
     ],
 )
 def test_unported_settings_raise(kw, flag):
     """The settings the port does not take yet raise, naming themselves;
-    those ported since are held to JAX in tests/test_torch_search_settings.py
-    and, for uncertainty weighting and policy optimism,
-    tests/test_torch_gatekeeper_search.py."""
+    those ported since are held to JAX in tests/test_torch_search_settings.py,
+    tests/test_torch_gatekeeper_search.py (uncertainty weighting, policy
+    optimism) and tests/test_torch_search_options.py (noise pruning, root
+    symmetry pruning, the avoid masks)."""
     roots = TB.init_state(TCFG, 2, "cpu")
     with pytest.raises(NotImplementedError, match=flag):
         TM.run_search(TCFG, SearchParams(**kw), TM.uniform_eval_fn(TCFG), roots, 4, device="cpu")
-
-
-@pytest.mark.parametrize("arg", ["root_avoid", "avoid_until"])
-def test_unported_arguments_raise(arg):
-    roots = TB.init_state(TCFG, 2, "cpu")
-    with pytest.raises(NotImplementedError, match=arg):
-        TM.run_search(TCFG, SearchParams(), TM.uniform_eval_fn(TCFG), roots, 4, device="cpu",
-                      **{arg: torch.zeros(2)})
 
 
 def test_eval_symmetries_raise():
