@@ -75,15 +75,18 @@ the run with a non-zero exit and a traceback:
      games/s, plies, searched visits/s, the tally and the decision, every
      SGF replayed to its winner, each kernel held to its plain version on
      the copies and timed, and a profile of a B=100 gating search; (b) a
-     float32 gating match of 4 games at 32 visits (8 until the GTP phase
-     came) on the card and on the
+     float32 gating match of 4 games at 16 visits (8 games until the GTP
+     phase came, 32 visits until the analysis phase came) on the card and
+     on the
      CPU with the same injected draws, the same games; (c) one cycle of
      `command.loop.run_loop` at reduced depth (selfplay, shuffle, 20 train
-     steps from the flagship checkpoint, export, a 16-game gate);
-  9. the GTP engine, the main path since it was ported (`phase_gtp`): (a)
+     steps from the flagship checkpoint, export, a 16-game gate at 8
+     visits, 16 until the analysis phase came);
+  9. the GTP engine (`phase_gtp`): (a)
      the engine `gtp -config configs/gtp_example.cfg -model run-s5200`
      builds (400 visits; graph search, noise pruning, uncertainty, subtree
-     bias, root symmetry pruning) over a scripted session (four genmoves,
+     bias, root symmetry pruning) over a scripted session (two genmoves,
+     four until the analysis phase came,
      kata-analyze with ownership, again with an avoid of its best move,
      kata-raw-nn, genmove_debug), with both kernels' launch counts set to 0
      before and read after and their inputs copied (`PathCopies`): the
@@ -94,18 +97,35 @@ the run with a non-zero exit and a traceback:
      forbidding lanes at depths 1 and more (lanes hit counted) and with one
      forbidding every lane (ignored); (c) a float32 engine's genmoves on
      the card and on the CPU, the same moves and visits;
- 10. profiles of a short B=512 search under both profiles and with the
+ 10. the analysis engine, the main path since it was ported
+     (`phase_analysis`): (a) the engine `analysis -model run-s5200` builds
+     (for_tests_v2(), seed 0) over a script through `run()`: a whole-game
+     review of REF_SGFS game 0 (plies 0-20 as one search at B=21, 400
+     visits, ownership, policy, PV visits), twelve one-position queries at
+     200 visits merged into one search padded from 12 lanes to 16 (one
+     avoiding moves to depth 3, one allowing two), a query streamed every
+     0.5 s at 200 visits and one terminated while pending, with
+     `PathCopies` entered around it: the seconds and root visits/s of each
+     search call with its lanes and batch, num_search_calls (3), the
+     reports checked, a B=16 profile (host reads and stream syncs a
+     playout); (b) each kernel held to its plain version on the copies,
+     padding lanes included, and timed, the forbidden lanes of the two
+     restricted lanes counted; (c) a float32 engine on the card and on the
+     CPU, the same reports within ANALYSIS_TOL; (d) the command in a
+     subprocess fed two queries on a pipe, `evalsgf` and `genconfig -model`
+     in process;
+ 11. profiles of a short B=512 search under both profiles and with the
      selfplay command's symmetry-randomizing evaluator (device busy share,
      launches and host syncs per playout), and that evaluator's cost in
      alternated pairs;
- 11. one log line a timed kernel row (us, bound, launch floor, library
+ 12. one log line a timed kernel row (us, bound, launch floor, library
      call; for the descent the deepest game's levels and us a level over
-     the floor); the trainer's, the GTP engine's and the gatekeeper's
-     numbers as one JSON line each, the kernel table as one JSON line
-     (launches, check and times from phase 9 (a), the earlier paths'
-     launches and the other shapes and trees beside them, each row with
-     `floor_ms`, each descent row with `max_levels` and `us_per_level`),
-     then the result line.
+     the floor); the trainer's, the GTP engine's, the analysis engine's
+     and the gatekeeper's numbers as one JSON line each, the kernel table
+     as one JSON line (launches, check and times from phase 10 (a), the
+     earlier paths' launches and the other shapes and trees beside them,
+     each row with `floor_ms`, each descent row with `max_levels` and
+     `us_per_level`), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -461,10 +481,11 @@ def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_unt
     return int(flip.sum()), err
 
 
-def forbidden_lanes(cfg, tree, inputs, out, avoid_until) -> int:
-    """The legal lanes that `avoid_until` forbade, with the mask kept (some
-    legal lane of the node left), on the levels a descent `out` (the plain
-    version's outputs) recorded: the lanes its kernel had to score -inf."""
+def forbidden_lanes(cfg, tree, inputs, out, avoid_until) -> list[int]:
+    """Each game's legal lanes that `avoid_until` forbade, with the mask
+    kept (some legal lane of the node left), on the levels a descent `out`
+    (the plain version's outputs) recorded: the lanes its kernel had to
+    score -inf."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
@@ -473,7 +494,7 @@ def forbidden_lanes(cfg, tree, inputs, out, avoid_until) -> int:
     leaf_depth, path, prior_c = out[1], out[2], out[6]
     B, D, _ = scratch.child_c.shape
     bidx = torch.arange(B, device=node.device)
-    hits = 0
+    hits = torch.zeros(B, dtype=torch.int64, device=node.device)
     for d in range(1, D):
         on = active & (depth <= d) & (d <= leaf_depth)
         if not bool(on.any()):
@@ -484,8 +505,8 @@ def forbidden_lanes(cfg, tree, inputs, out, avoid_until) -> int:
         forbid = mcts._compact_row(avoid_until[bidx, pidx], cand, valid, 0) > d
         legal = prior_c[:, d - 1] >= 0
         keep = (legal & ~forbid).any(-1, keepdim=True)
-        hits += int((forbid & legal & keep & on[:, None]).sum())
-    return hits
+        hits += (forbid & legal & keep & on[:, None]).sum(-1)
+    return hits.tolist()
 
 
 def descent_bound_ms(cfg, tree, inputs, out, sp=None, avoid_until=None) -> float:
@@ -1290,7 +1311,8 @@ def check_path_descent(label, cfg, sp, tree, inputs, timed: bool, avoid_until=No
     out = dict(timed_levels=levels, max_levels=int(game_levels.max()), flips=flips, max_abs_err=err,
                games=int(active.sum()), caught=int(want[-1].sum()), shape=[B, N, A, inputs[5].child_c.shape[-1]])
     if avoid_until is not None:
-        out["forbidden_lanes"] = forbidden_lanes(cfg, tree, inputs, want, avoid_until)
+        out["forbidden_by_game"] = forbidden_lanes(cfg, tree, inputs, want, avoid_until)
+        out["forbidden_lanes"] = sum(out["forbidden_by_game"])
     if timed:
         out["ms"], out["plain_ms"] = time_descent(cfg, sp, tree, start_ev, inputs, avoid_until=avoid_until)
         out["bound_ms"] = descent_bound_ms(cfg, tree, inputs, got, sp, avoid_until)
@@ -1395,6 +1417,9 @@ class PathCopies:
                 launch=n, flips=sum(c["flips"] for c in checked), games=sum(c["games"] for c in checked),
                 levels_compared=sum(c["timed_levels"] for c in checked),
                 max_abs_err=max(c["max_abs_err"] for c in checked))
+            masked = [c["forbidden_by_game"] for c in checked if "forbidden_by_game" in c]
+            if masked:
+                descent_timings[B]["forbidden_by_game"] = [sum(g) for g in zip(*masked)]
         self.descents.clear()
         return {"gather": gather_timings, "gather_max_abs_err": gather_err, "descent": descent_timings}
 
@@ -1863,7 +1888,7 @@ def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=10):
             "sims": copies.sims, **checked, "gather_shape": next(iter(checked["gather"])), "profile": prof}
 
 
-def phase_gate_card_vs_cpu(dev, cfg, games=4, visits=32):
+def phase_gate_card_vs_cpu(dev, cfg, games=4, visits=16):
     """The card against the CPU: a float32 gating match (run-s5200 against
     run-s4800, for_gatekeeper()) of `games` games at `visits` visits with
     the same injected Gumbel draws on both. The move records must be equal;
@@ -1935,7 +1960,7 @@ def phase_gate_card_vs_cpu(dev, cfg, games=4, visits=32):
     return {"games": games, "parted": len(parted), "card_s": tk, "cpu_s": tc}
 
 
-def phase_loop(dev, cfg, root, rows=1000, batch=64, visits=16, moves=6, steps=20, gate_games=16, gate_visits=16):
+def phase_loop(dev, cfg, root, rows=1000, batch=64, visits=16, moves=6, steps=20, gate_games=16, gate_visits=8):
     """One cycle of `command.loop.run_loop` at reduced depth on a base dir
     under `root` whose models/ holds run-s5200 and whose train/run/ holds the
     flagship checkpoint (step 5200): selfplay B=`batch` at `visits` visits,
@@ -2031,11 +2056,11 @@ def gtp_session(eng, lines) -> list[tuple[str, str, float]]:
     return out
 
 
-def phase_gtp(dev, snapshot_every=200, profile_sims=10, ponder_visits=200, cpu_visits=64, cpu_moves=3,
+def phase_gtp(dev, snapshot_every=200, profile_sims=10, ponder_visits=200, cpu_visits=64, cpu_moves=2,
               cli_visits=100):
-    """The GTP engine, this slice's main path. (a) `gtp_engine` (400
+    """The GTP engine, the main path of PR 12. (a) `gtp_engine` (400
     visits, graph search, noise pruning, uncertainty, subtree bias, root
-    symmetry pruning; ponder off) over a scripted session: clear_board, four
+    symmetry pruning; ponder off) over a scripted session: clear_board, two
     genmoves of alternating colour, kata-analyze b maxmoves 3 ownership
     true, the same with `avoid b <its best move> 1`, kata-raw-nn 0,
     genmove_debug b, quit, with `PathCopies` entered around it (launch
@@ -2064,7 +2089,7 @@ def phase_gtp(dev, snapshot_every=200, profile_sims=10, ponder_visits=200, cpu_v
     log(f"gtp (a): {GTP_CFG} over for_tests_v2(): {visits} visits, useGraphSearch {sp.useGraphSearch}, "
         f"useNoisePruning {sp.useNoisePruning}, useUncertainty {sp.useUncertainty}, subtreeValueBiasFactor "
         f"{sp.subtreeValueBiasFactor}, rootSymmetryPruning {sp.rootSymmetryPruning}; run-s5200 bf16")
-    genmoves = ["genmove b", "genmove w", "genmove b", "genmove w"]
+    genmoves = ["genmove b", "genmove w"]
     analyze = "kata-analyze b maxmoves 3 ownership true"
     t = time.monotonic()
     with PathCopies(snapshot_every) as copies:
@@ -2185,6 +2210,351 @@ def phase_gtp(dev, snapshot_every=200, profile_sims=10, ponder_visits=200, cpu_v
             "gather_shape": main_shape if main_shape in checked["gather"] else next(iter(checked["gather"]))}
 
 
+REF_SGFS = "tests/goldens/ref_sgfs/ref_000.sgfs"
+ANALYSIS_TOL = 2e-4  # GTP_WINRATE_TOL's rule: float32 sums of another order
+
+
+def ref_game_moves(k: int, cfg) -> list[list[str]]:
+    """Game k (counted from 0, one a line) of REF_SGFS as the analysis
+    protocol's [player, compact move] pairs."""
+    from katacoffee_tpu_torch.dataio.sgf import parse_sgf
+    from katacoffee_tpu_torch.game import io as gio
+
+    line = Path(REF_SGFS).read_text().splitlines()[k]
+    return [["B" if pla == 1 else "W", gio.loc_to_compact(x, y, d, cfg)] for x, y, d, pla in parse_sgf(line).moves()]
+
+
+def legal_after(cfg, moves) -> list[str]:
+    """The legal compact moves after `moves`, in action order (on the CPU)."""
+    import torch
+
+    from katacoffee_tpu_torch.game import io as gio
+    from katacoffee_tpu_torch.game.board import init_state, legal_mask_flat, step
+
+    st = init_state(cfg, 1, "cpu")
+    for _, m in moves:
+        x, y, d = gio.parse_loc(m, cfg)
+        st = step(cfg, st, torch.tensor([d * cfg.area + y * cfg.x_size + x]))
+    return [gio.action_to_compact(int(a), cfg) for a in torch.nonzero(legal_mask_flat(cfg, st)[0])[:, 0]]
+
+
+def analysis_engine(dev, dtype=None, raw=True):
+    """The analysis engine as `python -m katacoffee_tpu_torch analysis -model
+    MODEL_DIR` builds it (cli.py `_analysis`, command/analysis.py `main`):
+    for_tests_v2(), 100 default visits, seed 0, run-s5200 on `dev` (bf16
+    trunk unless `dtype`), an evaluator factory and, with `raw`, the cached
+    full-head forward factory. Returns (AnalysisEngine, GameConfig)."""
+    from katacoffee_tpu_torch.command.analysis import AnalysisEngine
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    model, cfg, _ = load_exported_model(MODEL_DIR, dev, dtype)
+    eng = AnalysisEngine(SearchParams.for_tests_v2(), lambda c: mcts.make_nn_eval_fn(c, model),
+                         raw_forward_factory=(lambda c: mcts.make_cached_raw_forward_fn(c, model)) if raw else None,
+                         seed=0, device=dev)
+    return eng, cfg
+
+
+def analysis_script(cfg, review_visits=400, batch_visits=200, stream_visits=200) -> list[dict]:
+    """Phase 10 (a)'s queries: query_version; r0, the whole-game review of
+    REF_SGFS game 0 (every live ply, ownership, policy and PV visits); c0-c11,
+    the position after ply 4 + (k mod 6) of game 2 + k each, c3 avoiding
+    every move of direction 0 for its mover to depth 3 (so that the descent
+    meets avoided lanes two plies down) and c7 allowing two legal moves to
+    depth 3; s0 streamed every 0.5 s; p0 at priority -1, then its
+    terminate."""
+    from katacoffee_tpu_torch.game import io as gio
+
+    g0 = ref_game_moves(0, cfg)
+    queries = [{"action": "query_version", "id": "v"},
+               {"id": "r0", "moves": g0, "analyzeTurns": list(range(len(g0))), "maxVisits": review_visits,
+                "includeOwnership": True, "includePolicy": True, "includePVVisits": True}]
+    for k in range(12):
+        moves = ref_game_moves(2 + k, cfg)[:4 + k % 6]
+        q = {"id": f"c{k}", "moves": moves, "maxVisits": batch_visits}
+        mover = "B" if len(moves) % 2 == 0 else "W"
+        legal = legal_after(cfg, moves)
+        if k == 3:
+            q["avoidMoves"] = [{"player": mover, "moves": [gio.action_to_compact(a, cfg) for a in range(cfg.area)],
+                                "untilDepth": 3}]
+        if k == 7:
+            q["allowMoves"] = [{"player": mover, "moves": [legal[0], legal[-1]], "untilDepth": 3}]
+        queries.append(q)
+    queries.append({"id": "s0", "moves": ref_game_moves(14, cfg)[:5], "maxVisits": stream_visits,
+                    "reportDuringSearchEvery": 0.5})
+    queries.append({"id": "p0", "moves": ref_game_moves(15, cfg)[:4], "maxVisits": batch_visits, "priority": -1})
+    queries.append({"action": "terminate", "id": "t", "terminateId": "p0"})
+    return queries
+
+
+def run_analysis(eng, queries) -> list[dict]:
+    import io
+
+    out = io.StringIO()
+    eng.run(io.StringIO("\n".join(json.dumps(q) for q in queries) + "\n"), out)
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def check_review(queries, reports) -> dict:
+    """The checks of phase 10 (a) on the reports: one final report a live
+    turn, root visits at least maxVisits, c3 without an avoided row, c7's
+    rows within its allowed moves, ownership in [-1, 1], s0 streamed, p0
+    terminated."""
+    by_id = {q["id"]: q for q in queries}
+    finals = [r for r in reports if r.get("isDuringSearch") is False and "moveInfos" in r]
+    for r in finals:
+        if r["rootInfo"]["visits"] < by_id[r["id"]]["maxVisits"] or not r["moveInfos"]:
+            raise AssertionError(f"analysis: {r['id']} turn {r['turnNumber']}: {r['rootInfo']['visits']} root "
+                                 f"visits, {len(r['moveInfos'])} rows")
+        own = r.get("ownership", [])
+        if any(not -1.0 <= v <= 1.0 for v in own):
+            raise AssertionError(f"analysis: {r['id']} ownership outside [-1, 1]")
+    got = sorted((r["id"], r["turnNumber"]) for r in finals)
+    want = sorted([("r0", t) for t in by_id["r0"]["analyzeTurns"]] + [(f"c{k}", len(by_id[f"c{k}"]["moves"]))
+                                                                      for k in range(12)] + [("s0", 5)])
+    if got != want:
+        raise AssertionError(f"analysis: final reports {got}, not {want}")
+    rows = {r["id"]: {mi["move"] for mi in r["moveInfos"]} for r in finals if r["id"][0] in "cs"}
+    avoided = set(by_id["c3"]["avoidMoves"][0]["moves"])
+    allowed = set(by_id["c7"]["allowMoves"][0]["moves"])
+    if rows["c3"] & avoided or not rows["c7"] <= allowed:
+        raise AssertionError(f"analysis: c3 rows {rows['c3']} meet its avoided moves, or c7 rows {rows['c7']} "
+                             f"leave {allowed}")
+    stream = [r["isDuringSearch"] for r in reports if r.get("id") == "s0"]
+    if stream.count(False) != 1 or stream.count(True) < 1:
+        raise AssertionError(f"analysis: s0 reported {stream}")
+    if [r for r in reports if r.get("id") == "p0"] != [
+            {"id": "p0", "turnNumber": 4, "isDuringSearch": False, "noResults": True}]:
+        raise AssertionError("analysis: p0 was not answered noResults")
+    owned = sum(len(r.get("ownership", [])) for r in finals)
+    return {"finals": len(finals), "interim_s0": stream.count(True), "ownership_values": owned,
+            "c3_rows": sorted(rows["c3"]), "c7_rows": sorted(rows["c7"])}
+
+
+def compare_reports(label, a, b, tol=ANALYSIS_TOL) -> float:
+    """Two runs' final reports: the same moves, visits, orders and PVs;
+    winrate, lcb and utility of the root and the rows within `tol`.
+    Returns the largest difference."""
+    fa = [r for r in a if "moveInfos" in r]
+    fb = [r for r in b if "moveInfos" in r]
+    worst = 0.0
+    if [(r["id"], r["turnNumber"]) for r in fa] != [(r["id"], r["turnNumber"]) for r in fb]:
+        raise AssertionError(f"{label}: different reports")
+    for ra, rb in zip(fa, fb):
+        rows = [[(m["move"], m["visits"], m["order"], m["pv"]) for m in r["moveInfos"]] for r in (ra, rb)]
+        if rows[0] != rows[1] or ra["rootInfo"]["visits"] != rb["rootInfo"]["visits"]:
+            raise AssertionError(f"{label}: {ra['id']} turn {ra['turnNumber']} parts: {rows[0]} against {rows[1]}")
+        pairs = [(ra["rootInfo"][k], rb["rootInfo"][k]) for k in ("winrate", "utility")]
+        pairs += [(x[k], y[k]) for x, y in zip(ra["moveInfos"], rb["moveInfos"]) for k in ("winrate", "lcb", "utility")]
+        worst = max([worst] + [abs(x - y) for x, y in pairs])
+    if worst > tol:
+        raise AssertionError(f"{label}: floats part by {worst} > {tol}")
+    return worst
+
+
+def phase_analysis(dev, snapshot_every=100, profile_sims=10, review_visits=400, batch_visits=200, stream_visits=200,
+                   cpu_visits=64, cli_visits=100, evalsgf_visits=100):
+    """The analysis engine, this slice's main path. (a) `analysis_engine`
+    (run-s5200 bf16, for_tests_v2(), seed 0) over `analysis_script` through
+    `run()`, with `PathCopies` entered around it (launch counts set to 0
+    before and read after, one descent launch a playout) and each search
+    call timed (run_search and continue_search, ended by a device sync):
+    the seconds of each call with its lanes and batch, root visits/s over
+    lanes x visits, `num_search_calls` (3: r0 at B=21, the c-batch padded
+    from 12 lanes to 16, s0), the checks of `check_review`; a profile of 10
+    playouts at the c-batch's shape (B=16, its roots and masks). (b) Each
+    kernel held to its plain version on the copies (padding lanes
+    included) and timed, the forbidden lanes hit in c3's and c7's games
+    counted. (c) A float32 engine on the card and on the CPU over one
+    4-turn query and then two compatible queries at `cpu_visits`: the same
+    moves, visits, orders and PVs, floats within ANALYSIS_TOL. (d) `python
+    -m katacoffee_tpu_torch analysis -model` in a subprocess fed two queries
+    at `cli_visits` on a pipe (the interactive `select` path); `evalsgf` on
+    game 1 before move 6 at 100 visits and `genconfig -noninteractive
+    -model` in process, the config read back."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from katacoffee_tpu_torch.command import analysis as analysis_cmd
+    from katacoffee_tpu_torch.command import benchmark as benchmark_cmd
+    from katacoffee_tpu_torch.command import evalsgf, genconfig
+    from katacoffee_tpu_torch.game.board import init_state
+    from katacoffee_tpu_torch.program.setup import load_search_params
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.utils.config import ConfigParser
+
+    eng, cfg = analysis_engine(dev)
+    queries = analysis_script(cfg, review_visits, batch_visits, stream_visits)
+    search_log = []
+    eng.logger, eng.log_search_info = type("Lines", (), {"write": lambda self, m: search_log.append(m)})(), True
+    calls = []
+    kept = mcts.run_search, mcts.continue_search
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append((name, int(args[3].stats.shape[0] if name == "continue" else args[3].board.shape[0]),
+                          time.monotonic() - t))
+            return out
+        return call
+
+    mcts.run_search, mcts.continue_search = timed("run", kept[0]), timed("continue", kept[1])
+    t = time.monotonic()
+    try:
+        with PathCopies(snapshot_every) as copies:
+            reports = run_analysis(eng, queries)
+    finally:
+        mcts.run_search, mcts.continue_search = kept
+    wall = time.monotonic() - t
+    checked_reports = check_review(queries, reports)
+    if eng.num_search_calls != 3:
+        raise AssertionError(f"analysis: {eng.num_search_calls} search calls, not 3")
+    by_id = {q["id"]: q for q in queries}
+    searches = []
+    for line in search_log:
+        lanes = int(line.split(" lanes=")[1].split()[0])
+        visits = int(line.split(" visits=")[1].split()[0])
+        searches.append({"log": line, "lanes": lanes, "visits": visits})
+    runs = [c for c in calls if c[0] == "run"]
+    for s, (_, batch, sec) in zip(searches, runs):
+        s["batch"] = batch
+        s["seconds"] = sec
+    # the streamed search: its run_search(0) and every continue_search chunk
+    searches[-1]["seconds"] += sum(c[2] for c in calls if c[0] == "continue")
+    searches[-1]["chunks"] = sum(c[0] == "continue" for c in calls)
+    for s in searches:
+        s["root_vps"] = s["lanes"] * s["visits"] / s["seconds"]
+        s["batch_vps"] = s["batch"] * s["visits"] / s["seconds"]
+    if [(s["lanes"], s["batch"]) for s in searches] != [(21, 21), (12, 16), (1, 1)]:
+        raise AssertionError(f"analysis: searches {[(s['lanes'], s['batch']) for s in searches]}")
+    sims_want = sum(s["visits"] for s in searches)  # a simulation runs every lane of its batch
+    log(f"analysis (a): run() {wall:.3f} s; " + "; ".join(
+        f"{s['log'].split(' visits=')[0][len('Search: '):]}: {s['seconds']:.3f} s, {s['root_vps']:.1f} root "
+        f"visits/s over lanes ({s['batch_vps']:.1f} over the batch)" for s in searches)
+        + f"; num_search_calls {eng.num_search_calls}; launches: descend_interior "
+        f"{copies.launches['descend_interior']} for {copies.sims} simulations run, gather_rows "
+        f"{copies.launches['gather_rows']} (shapes {sorted(copies.gathers)}); reports {checked_reports}")
+    copies.check_launches("analysis", 16)
+    if copies.sims != sims_want:
+        raise AssertionError(f"analysis: {copies.sims} simulations run, not {sims_want}")
+
+    preps = [eng._prepare(by_id[f"c{k}"]) for k in range(12)]
+    roots = analysis_cmd._cat([p["states_by_turn"][p["live"][0]] for p in preps] + [init_state(cfg, 4, dev)])
+    avoid = torch.from_numpy(np.concatenate([p["avoid"] for p in preps] + [np.zeros((4, cfg.policy_size), bool)]))
+    until = torch.from_numpy(np.concatenate([p["avoid_until"] for p in preps]
+                                            + [np.zeros((4, 2, cfg.policy_size), np.int32)]))
+    sp = eng.sp
+    ev = eng._eval_fn(cfg)
+
+    def search(wrap=lambda name, fn: fn):
+        mcts.run_search(cfg, sp, wrap("net", ev), roots, profile_sims, device=dev, root_avoid=avoid.to(dev),
+                        avoid_until=until.to(dev))
+        torch.cuda.synchronize()
+
+    prof = phase_profile(dev, "analysis c-batch B=16 fresh", search, profile_sims)
+
+    checked = copies.check("analysis (b)", cfg)
+    by_game = checked["descent"][16].get("forbidden_by_game", [0] * 16)
+    forbidden = {"c3": by_game[3], "c7": by_game[7], "other_lanes": sum(by_game) - by_game[3] - by_game[7]}
+    log(f"analysis (b): forbidden lanes hit in the c-batch's copies: {forbidden}")
+    if forbidden["c3"] + forbidden["c7"] == 0 or forbidden["other_lanes"] != 0:
+        raise AssertionError("analysis (b): no forbidden lane hit in c3 or c7, or one in an unrestricted lane")
+
+    t = time.monotonic()
+    first = [{"id": "f0", "moves": ref_game_moves(20, cfg)[:3], "analyzeTurns": [0, 1, 2, 3],
+              "maxVisits": cpu_visits}]
+    pair = [{"id": f"f{k}", "moves": ref_game_moves(20 + k, cfg)[:4 + k], "maxVisits": cpu_visits} for k in (1, 2)]
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        e = analysis_engine(d, torch.float32, raw=False)[0]
+        outs.append(run_analysis(e, first) + run_analysis(e, pair))
+        if e.num_search_calls != 2:
+            raise AssertionError(f"analysis (c): {e.num_search_calls} search calls on {d}, not 2")
+    card_cpu = compare_reports("analysis (c) card against CPU", *outs)
+    log(f"analysis (c): float32 engine on the card and the CPU, a 4-turn query then two compatible ones at "
+        f"{cpu_visits} visits: moves, visits, orders and PVs equal, floats within {card_cpu:.3g} "
+        f"({time.monotonic() - t:.1f} s)")
+
+    t = time.monotonic()
+    lines = [{"id": f"i{k}", "moves": ref_game_moves(30 + k, cfg)[:5], "maxVisits": cli_visits} for k in range(2)]
+    proc = subprocess.run([sys.executable, "-m", "katacoffee_tpu_torch", "analysis", "-model", MODEL_DIR],
+                          input="".join(json.dumps(q) + "\n" for q in lines), capture_output=True, text=True,
+                          timeout=300)
+    cli_s = time.monotonic() - t
+    try:
+        cli_reports = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    except json.JSONDecodeError:
+        cli_reports = []
+    cli_ok = (proc.returncode == 0 and sorted(r.get("id") for r in cli_reports) == ["i0", "i1"]
+              and all(r["rootInfo"]["visits"] >= cli_visits and not r["isDuringSearch"] for r in cli_reports))
+    log(f"analysis (d): python -m katacoffee_tpu_torch analysis -model {MODEL_DIR}, two queries at {cli_visits} "
+        f"visits on a pipe: {len(cli_reports)} reports, exit {proc.returncode}, {cli_s:.1f} s with the process's "
+        f"start")
+    if not cli_ok:
+        raise AssertionError(f"analysis (d): the command failed: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+
+    work = Path(tempfile.mkdtemp(prefix="katacoffee_analysis_"))
+    try:
+        sgf = work / "game1.sgf"
+        sgf.write_text(Path(REF_SGFS).read_text().splitlines()[1] + "\n")
+        t = time.monotonic()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            evalsgf.main([str(sgf), "-move-num", "6", "-visits", str(evalsgf_visits), "-model", MODEL_DIR])
+        evalsgf_s = time.monotonic() - t
+        printed = buf.getvalue().splitlines()
+        root = [x for x in printed if x.startswith("root: visits ")]
+        rows = [x for x in printed if x.startswith("  ") and " v=" in x and " pv: " in x]
+        log(f"analysis (d): evalsgf game 1 before move 6 at {evalsgf_visits} visits ({evalsgf_s:.1f} s): {root} and "
+            f"{len(rows)} rows, the first {rows[:1]}")
+        if len(root) != 1 or int(root[0].split()[2]) != evalsgf_visits + 1 or not rows:
+            raise AssertionError(f"analysis (d): evalsgf printed {printed}")
+
+        measured = []
+        kept_bench = benchmark_cmd.benchmark_search
+
+        def recording(*args, **kwargs):
+            measured.append(kept_bench(*args, **kwargs))
+            return measured[-1]
+
+        benchmark_cmd.benchmark_search = recording
+        t = time.monotonic()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                genconfig.main(["-noninteractive", "-model", MODEL_DIR, "-output", str(work / "gen.cfg")])
+        finally:
+            benchmark_cmd.benchmark_search = kept_bench
+        genconfig_s = time.monotonic() - t
+        printed = buf.getvalue()
+        c = ConfigParser(str(work / "gen.cfg"))
+        gen_sp = load_search_params(c, SearchParams.for_tests_v2())
+        gen_visits = c.get_int("maxVisits")
+        vps = measured[0][1]
+        printed_vps = float(printed.split("measured ")[1].split(" visits/s")[0])
+        log(f"analysis (d): genconfig -noninteractive -model ({genconfig_s:.1f} s): {printed.strip()!r}; "
+            f"{vps:.3f} visits/s measured, maxVisits {gen_visits}, useNoisePruning {gen_sp.useNoisePruning}")
+        if gen_visits != max(16, int(vps * 2.0)) or abs(printed_vps - vps) > 0.5 or not gen_sp.useGraphSearch:
+            raise AssertionError(f"analysis (d): genconfig wrote maxVisits {gen_visits} for {vps} visits/s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    main_shape = (16, by_id["c0"]["maxVisits"] + 2, 8, cfg.policy_size)
+    return {"wall_s": wall, "searches": searches, "num_search_calls": eng.num_search_calls,
+            "launches": copies.launches, "sims": copies.sims, "profile": prof, "reports": checked_reports,
+            "forbidden": forbidden, "card_vs_cpu_max_diff": card_cpu, "cli_s": cli_s, "evalsgf_s": evalsgf_s,
+            "genconfig_s": genconfig_s, "genconfig_vps": vps, "genconfig_max_visits": gen_visits, **checked,
+            "gather_shape": main_shape if main_shape in checked["gather"] else next(iter(checked["gather"]))}
+
+
 PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_lookup", "_bias_keys", "_bias_avg",
             "_root_eval", "_tree_from_root_eval", "advance_root")
 
@@ -2231,6 +2601,7 @@ def phase_profile(dev, label, search, sims=20):
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     device_kernels = sum(e.count for e in kernels)
     syncs = sum(e.count for e in events if e.key == "aten::_local_scalar_dense")
+    stream_syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
     by_phase = collections.Counter()
     for e in prof.events():
         if e.name != "cudaLaunchKernel":
@@ -2244,17 +2615,19 @@ def phase_profile(dev, label, search, sims=20):
         f"profile {label} {sims} sims: wall {wall:.3f}s unprofiled, device busy {busy:.3f}s "
         f"({busy / wall:.1%} of the wall), {launches / sims:.0f} cudaLaunchKernel calls and "
         f"{device_kernels / sims:.0f} device kernels and {syncs / sims:.2f} host reads of a device "
-        f"value (aten::_local_scalar_dense, each a host sync) per simulation"
+        f"value (aten::_local_scalar_dense, each a host sync) per simulation, {stream_syncs / sims:.2f} "
+        f"cudaStreamSynchronize"
     )
     log("  cudaLaunchKernel per simulation by caller: "
         + ", ".join(f"{k} {v / sims:.1f}" for k, v in by_phase.most_common()))
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x  {e.key[:90]}")
-    return {"launches_per_sim": launches / sims, "syncs_per_sim": syncs / sims, "busy_share": busy / wall,
+    return {"launches_per_sim": launches / sims, "syncs_per_sim": syncs / sims,
+            "stream_syncs_per_sim": stream_syncs / sims, "busy_share": busy / wall,
             "by_phase": {k: v / sims for k, v in by_phase.items()}}
 
 
-def profile_searches(dev, cfg, reused_tree, batch=512, sims=10, pairs=5):
+def profile_searches(dev, cfg, reused_tree, batch=512, sims=10, pairs=3):
     """Profiles of `sims` playouts at B=512 b6c96: a fresh search from the
     empty board under the default and the selfplay profile, the selfplay
     one again with the selfplay command's evaluator (a random symmetry per
@@ -2329,11 +2702,11 @@ def log_kernel_rows(gather_entry: dict, descend_entry: dict) -> None:
     def us(x):
         return "n/a" if x is None else f"{x * 1e3:.2f}"
 
-    rows = [(f"gtp {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
+    rows = [(f"analysis {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
     for label, r in rows:
         log(f"  gather_rows {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
             f"torch.gather {us(r['library_ms'])}, plain {us(r['plain_ms'])}")
-    rows = [(f"gtp B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
+    rows = [(f"analysis B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
     for label, r in rows:
         log(f"  descend_interior {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
             f"deepest game {r['max_levels']} levels, {r['us_per_level']:.3f} us a level")
@@ -2400,34 +2773,39 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    log("phase 9: the GTP engine (this slice's main path), its kernels' inputs, card against CPU")
+    log("phase 9: the GTP engine, its kernels' inputs, card against CPU")
     gtp = phase_gtp(dev)
 
-    log("phase 10: profiles")
+    log("phase 10: the analysis engine (this slice's main path), its kernels' inputs, card against CPU, the "
+        "analysis, evalsgf and genconfig commands")
+    analysis = phase_analysis(dev)
+
+    log("phase 11: profiles")
     profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
     ab = profiles.pop("randomization_ab")
     log("per playout: cudaLaunchKernel " + ", ".join(
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
-    # the kernels line reports the main path (phase 9 (a), the GTP engine):
-    # its launches, and each kernel's check and times on the inputs that
-    # path gave it; the earlier paths' launches and times beside them (the
-    # trainer's path, phase 7, launches neither)
-    shape = gtp["gather_shape"]
-    t = gather_row(gtp["gather"][shape], floor)
+    # the kernels line reports the main path (phase 10 (a), the analysis
+    # engine): its launches, and each kernel's check and times on the inputs
+    # that path gave it (the c-batch's); the earlier paths' launches and
+    # times beside them (the trainer's path, phase 7, launches neither)
+    paths = (command, gate, gtp, analysis)
+    shape = analysis["gather_shape"]
+    t = gather_row(analysis["gather"][shape], floor)
     gather_entry = {
         "name": "gather_rows",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/gather_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
-        "launches": gtp["launches"]["gather_rows"],
+        "launches": analysis["launches"]["gather_rows"],
+        "launches_gtp_path": gtp["launches"]["gather_rows"],
         "launches_gatekeeper_path": gate["launches"]["gather_rows"],
         "launches_selfplay_command_path": command["launches"]["gather_rows"],
         "launches_segment_path": selfplay["launches"]["gather_rows"],
         "launches_trainer_path": trainer["kernel_launches"]["gather_rows"],
-        "max_abs_err": max(kern["max_abs_err"], command["gather_max_abs_err"], gate["gather_max_abs_err"],
-                           gtp["gather_max_abs_err"]),
+        "max_abs_err": max(kern["max_abs_err"], *(p["gather_max_abs_err"] for p in paths)),
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
@@ -2439,20 +2817,24 @@ def main() -> int:
         "launches_default_path": search["launches"]["gather_rows"],
         "launches_per_search_default_path": search["per_search"]["gather_rows"],
         "other_shapes": {
-            **{f"gtp {list(s)}": gather_row(v, floor) for s, v in gtp["gather"].items() if s != shape},
+            **{f"analysis {list(s)}": gather_row(v, floor) for s, v in analysis["gather"].items() if s != shape},
+            **{f"gtp {list(s)}": gather_row(v, floor) for s, v in gtp["gather"].items()},
             **{f"gatekeeper {list(s)}": gather_row(v, floor) for s, v in gate["gather"].items()},
             **{f"selfplay command {list(s)}": gather_row(v, floor) for s, v in command["gather"].items()},
             **{f"random inputs {list(s)}": gather_row(v, floor) for s, v in kern["timings"].items()},
         },
     }
-    timed = descent_row(gtp["descent"][1], floor)
+    timed = descent_row(analysis["descent"][16], floor)
     descend_entry = {
         "name": "descend_interior",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/descend_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
         "also_replaces": "katacoffee_tpu/search/mcts.py:1267",
-        "launches": gtp["launches"]["descend_interior"],
+        "launches": analysis["launches"]["descend_interior"],
+        "simulations_run_analysis": analysis["sims"],
+        "forbidden_lanes_hit_analysis": analysis["forbidden"],
+        "launches_gtp_path": gtp["launches"]["descend_interior"],
         "simulations_run_gtp": gtp["sims"],
         "forbidden_lanes_hit": gtp["forbidden_lanes"],
         "launches_gatekeeper_path": gate["launches"]["descend_interior"],
@@ -2461,7 +2843,7 @@ def main() -> int:
         "simulations_run_selfplay_command": command["sims"],
         "launches_segment_path": selfplay["launches"]["descend_interior"],
         "launches_trainer_path": trainer["kernel_launches"]["descend_interior"],
-        "max_abs_err": max(desc["max_abs_err"], *(v["max_abs_err"] for path in (command, gate, gtp)
+        "max_abs_err": max(desc["max_abs_err"], *(v["max_abs_err"] for path in paths
                                                   for v in path["descent"].values())),
         "ms": timed["ms"],
         "plain_ms": timed["plain_ms"],
@@ -2474,18 +2856,17 @@ def main() -> int:
         "shape": timed["shape"],
         "timed_levels": timed["timed_levels"],
         "other_trees": {
+            **{f"analysis B={b}": descent_row(v, floor) for b, v in analysis["descent"].items() if b != 16},
+            **{f"gtp B={b}": descent_row(v, floor) for b, v in gtp["descent"].items()},
             **{f"gatekeeper B={b}": descent_row(v, floor) for b, v in gate["descent"].items()},
             **{f"selfplay command B={b}": descent_row(v, floor) for b, v in command["descent"].items()},
             **{f"grown {k} tree B=512": descent_row(v, floor) for k, v in desc["timed"].items()},
         },
         "simulations_run_segment_path": selfplay["sims"],
         "launches_default_path": search["launches"]["descend_interior"],
-        "near_tie_flips": desc["flips"] + sum(v["flips"] for p in (command, gate, gtp)
-                                              for v in p["descent"].values()),
-        "games_compared": desc["games"] + sum(v["games"] for p in (command, gate, gtp)
-                                              for v in p["descent"].values()),
-        "levels_compared": desc["levels"] + sum(v["levels_compared"] for p in (command, gate, gtp)
-                                                for v in p["descent"].values()),
+        "near_tie_flips": desc["flips"] + sum(v["flips"] for p in paths for v in p["descent"].values()),
+        "games_compared": desc["games"] + sum(v["games"] for p in paths for v in p["descent"].values()),
+        "levels_compared": desc["levels"] + sum(v["levels_compared"] for p in paths for v in p["descent"].values()),
         "ab_identical_games": search["ab_identical"],
         "ab_games": search["ab_games"],
         "ab_max_tv": search["ab_tv"],
@@ -2499,7 +2880,11 @@ def main() -> int:
     per_sim = [selfplay["segment_walls"][0] / selfplay["segment_sims"] * 1e3,
                command["segment_walls"][0] / command["segment_sims"] * 1e3]
     own = [r["own_s"] / r["wall_s"] for r in command["rows_runs"]]
-    log(f"phase 11: done; gtp genmoves at {gtp['visits']} visits in "
+    searches = ", ".join(f"lanes {s['lanes']} batch {s['batch']} at {s['visits']} visits {s['seconds']:.3f} s "
+                         f"({s['root_vps']:.1f} root visits/s)" for s in analysis["searches"])
+    log(f"phase 12: done; analysis searches {searches} ({analysis['profile']['launches_per_sim']:.0f} launches, "
+        f"{analysis['profile']['syncs_per_sim']:.2f} host reads and {analysis['profile']['stream_syncs_per_sim']:.2f} "
+        f"stream syncs a playout at B=16); gtp genmoves at {gtp['visits']} visits in "
         + ", ".join(f"{x:.3f}" for x in gtp["genmove_s"]) + f" s ({gtp['profile']['launches_per_sim']:.0f} launches, "
         f"{gtp['profile']['syncs_per_sim']:.2f} host syncs a playout); gatekeeper {gate['games']} games at {gate['visits']} visits in {gate['match_s']:.3f} s "
         f"({gate['games_per_s']:.3f} games/s, {gate['searched_vps']:.1f} searched visits/s, {gate['plies']} plies), "
@@ -2519,6 +2904,8 @@ def main() -> int:
     print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"gtp": {k: v for k, v in gtp.items() if k not in ("gather", "descent")}}, default=str),
           flush=True)
+    print(json.dumps({"analysis": {k: v for k, v in analysis.items() if k not in ("gather", "descent")}},
+                     default=str), flush=True)
     print(json.dumps({"gatekeeper": {k: v for k, v in gate.items() if k not in ("gather", "descent")}},
                      default=str), flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)

@@ -1,7 +1,8 @@
 """Subcommand dispatch for the port, `python -m katacoffee_tpu_torch <cmd>`
 (the JAX package's `katacoffee_tpu/cli.py`). The ported subcommands are
 `selfplay`, `shuffle`, `train`, `validate`, `checkpoint`, `gatekeeper`,
-`match`, `loop`, `summarize_sgfs`, `benchmark` and `gtp`; any other exits
+`match`, `loop`, `summarize_sgfs`, `benchmark`, `gtp`, `analysis`,
+`evalsgf`, `genconfig`, `version` and `printclockinfo`; any other exits
 non-zero and says so."""
 
 from __future__ import annotations
@@ -43,13 +44,27 @@ Usage: python -m katacoffee_tpu_torch <subcommand> [args]
   gtp [-config FILE] [-override-config k=v,...] [-model MODEL_DIR]
                GTP engine on stdin/stdout, searching on the GPU (uniform
                priors without -model)
+  analysis [-config FILE] [-override-config k=v,...] [-model MODEL_DIR]
+               JSON-lines analysis engine on stdin/stdout: a query's turns,
+               and compatible queries together, as one batched search on
+               the GPU
+  evalsgf SGF [-move-num N] [-visits V] [-model MODEL_DIR]
+          [-print-tree-depth D] [-print-branch 'MOVE ...']
+               search one SGF position on the GPU, print the rows and PVs
+  genconfig -output FILE [-model MODEL_DIR] [-noninteractive]
+            [-target-seconds-per-move S]
+               write a GTP config (maxVisits from a visits/s benchmark on
+               the GPU with -model)
+  version      print the version
+  printclockinfo
+               print the monotonic clock's resolution
 
 Every other subcommand of `python -m katacoffee_tpu` is not ported yet.
 """
 
 
 # subcommands whose command module's main(argv) runs them
-_COMMANDS = ("gatekeeper", "match", "loop", "summarize_sgfs", "benchmark")
+_COMMANDS = ("gatekeeper", "match", "loop", "summarize_sgfs", "benchmark", "evalsgf", "genconfig")
 
 
 def _shuffle(args: list[str]) -> int:
@@ -91,6 +106,38 @@ def _gtp(args: list[str]) -> int:
     return 0
 
 
+def _analysis(args: list[str]) -> int:
+    """`analysis [-model MODEL_DIR] ...`: an evaluator factory and a cached
+    full-head forward factory (ownership, the root's raw heads) over the
+    exported model, both on the GPU (JAX cli.py:97-120)."""
+    from katacoffee_tpu_torch.command.analysis import main as analysis_main
+
+    if "-model" not in args:
+        analysis_main(args)
+        return 0
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.search.mcts import make_cached_raw_forward_fn, make_nn_eval_fn
+
+    i = args.index("-model")
+    model_dir = args[i + 1]
+    args = args[:i] + args[i + 2:]
+    model = load_exported_model(model_dir)[0]
+    analysis_main(args, eval_fn_factory=lambda cfg: make_nn_eval_fn(cfg, model),
+                  raw_forward_factory=lambda cfg: make_cached_raw_forward_fn(cfg, model))
+    return 0
+
+
+def _printclockinfo() -> int:
+    """misc.cpp:564-575 role: sanity-print the engine's timing clock."""
+    import time
+
+    info = time.get_clock_info("monotonic")
+    print(f"Clock: time.monotonic ({info.implementation})")
+    print(f"Resolution in seconds: {info.resolution}")
+    print(f"Ticks since epoch: {time.monotonic_ns()}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help", "help"):
@@ -119,6 +166,13 @@ def main(argv: list[str] | None = None) -> int:
         return checkpoint_main(args)
     if cmd == "gtp":
         return _gtp(args)
+    if cmd == "analysis":
+        return _analysis(args)
+    if cmd == "version":
+        print(__version__)
+        return 0
+    if cmd == "printclockinfo":
+        return _printclockinfo()
     if cmd in _COMMANDS:
         import importlib
 

@@ -44,7 +44,7 @@ class TrainerConfig:
     max_epochs_per_data: int = 8  # the reference loop's <= 8 passes a row
     seed: int = 0
     # the JAX package shards the batch over every visible device; the port
-    # raises there (ROADMAP Queue 1 item 11)
+    # raises there (ROADMAP Queue 1 item 8)
     use_mesh: bool = True
 
 

@@ -6,7 +6,7 @@ import os
 
 import torch
 
-MULTI_GPU = "ROADMAP Queue 1 item 11 (multiple GPUs)"
+MULTI_GPU = "ROADMAP Queue 1 item 8 (multiple GPUs)"
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

@@ -76,24 +76,6 @@ class IllegalMoveError(ValueError):
     pass
 
 
-def _host_tree(tree: mcts.Tree) -> dict:
-    """Game 0's tree arrays as numpy, under the JAX Tree's view names."""
-    stats = tree.stats[0].cpu()
-    return {
-        "children": tree.children[0].cpu().numpy(),
-        "edge_visits": tree.edge_visits[0].cpu().numpy(),
-        "visits": (stats[:, mcts.S_VISITS] + 0.5).to(torch.int32).numpy(),
-        "weight_sum": stats[:, mcts.S_W].numpy(),
-        "weight_sq_sum": stats[:, mcts.S_WSQ].numpy(),
-        "utility_avg": stats[:, mcts.S_U].numpy(),
-        "utility_sq_avg": stats[:, mcts.S_USQ].numpy(),
-        "wl_avg": stats[:, mcts.S_WL].numpy(),
-        "draw_avg": stats[:, mcts.S_DRAW].numpy(),
-        "prior": tree.prior[0].cpu().numpy(),
-        "root_prior": tree.root_prior[0].cpu().numpy(),
-    }
-
-
 def _warm_kernels(dev: torch.device) -> None:
     """Builds and loads both search kernels on a CUDA device, so that no
     search the engine times pays their build (the JAX engine's first search
@@ -527,7 +509,7 @@ class Engine:
     def _extract_analysis(self, tree: mcts.Tree, max_moves: int = 16, pv_len: int = 8,
                           avoid: np.ndarray | None = None) -> AnalysisResult:
         cfg = self.cfg
-        h = _host_tree(tree)
+        h = mcts.host_tree(tree, 0)
         children, visits, edge_visits = h["children"], h["visits"], h["edge_visits"]
         wl, draw, util, usq = h["wl_avg"], h["draw_avg"], h["utility_avg"], h["utility_sq_avg"]
         wsum, wsq, prior = h["weight_sum"], h["weight_sq_sum"], h["root_prior"]
@@ -601,7 +583,7 @@ class Engine:
         if tree is None:
             return "(no search tree)"
         cfg = self.cfg
-        h = _host_tree(tree)
+        h = mcts.host_tree(tree, 0)
         children, edge_visits, visits = h["children"], h["edge_visits"], h["visits"]
         wl, util, wsum, prior = h["wl_avg"], h["utility_avg"], h["weight_sum"], h["prior"]
 

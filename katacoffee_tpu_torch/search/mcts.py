@@ -1494,6 +1494,28 @@ def advance_root(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree,
 # ---------------------------------------------------------------------------
 
 
+def host_tree(tree: Tree, lane: int | None = None) -> dict:
+    """The tree's arrays as numpy under the JAX Tree's view names, one copy
+    a field: every game ([B, N, ...]), or game `lane`'s alone ([N, ...])."""
+    pick = (lambda x: x) if lane is None else (lambda x: x[lane])
+    stats = pick(tree.stats).cpu()
+    return {
+        "children": pick(tree.children).cpu().numpy(),
+        "edge_visits": pick(tree.edge_visits).cpu().numpy(),
+        "visits": (stats[..., S_VISITS] + 0.5).to(torch.int32).numpy(),
+        "weight_sum": stats[..., S_W].numpy(),
+        "weight_sq_sum": stats[..., S_WSQ].numpy(),
+        "utility_avg": stats[..., S_U].numpy(),
+        "utility_sq_avg": stats[..., S_USQ].numpy(),
+        "wl_avg": stats[..., S_WL].numpy(),
+        "draw_avg": stats[..., S_DRAW].numpy(),
+        "self_weight": pick(tree.self_stats)[..., F_W].cpu().numpy(),
+        "is_terminal": pick(tree.is_terminal).cpu().numpy(),
+        "prior": pick(tree.prior).cpu().numpy(),
+        "root_prior": pick(tree.root_prior).cpu().numpy(),
+    }
+
+
 def _root_child_stats(tree: Tree) -> dict:
     B = tree.children.shape[0]
     dev = tree.children.device

@@ -22,9 +22,8 @@ white-perspective and flips at output, searchresults.cpp:1753-1760).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from katacoffee_tpu_torch.search.mcts import F_W, S_VISITS, S_W
+from katacoffee_tpu_torch.search.mcts import host_tree
 
 
 def node_ownership_maps(raw_forward, tree, i: int) -> np.ndarray:
@@ -115,20 +114,17 @@ def tree_ownership(
     own_maps: np.ndarray,
     node: int = 0,
     want_stdev: bool = False,
+    host: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray | None]:
     """(average[area], stdev[area] or None) over the subtree of game `i`
     rooted at `node`, using precomputed per-node maps from
     node_ownership_maps. stdev is the proportion-weighted standard
-    deviation across the search, searchresults.cpp:1587-1612."""
-    stats = tree.stats[i].cpu()
-    children = tree.children[i].cpu().numpy()
-    edge_visits = tree.edge_visits[i].cpu().numpy()
-    visits = (stats[:, S_VISITS] + 0.5).to(torch.int32).numpy()
-    weight_sum = stats[:, S_W].numpy()
-    self_weight = tree.self_stats[i, :, F_W].cpu().numpy()
-    is_terminal = tree.is_terminal[i].cpu().numpy()
+    deviation across the search, searchresults.cpp:1587-1612. `host` is
+    game i's arrays as `mcts.host_tree` copies them, where the caller has
+    them already; without it they are copied here."""
+    h = host if host is not None else host_tree(tree, i)
     props = ownership_props(
-        children, edge_visits, visits, weight_sum, self_weight, is_terminal, node
+        h["children"], h["edge_visits"], h["visits"], h["weight_sum"], h["self_weight"], h["is_terminal"], node
     )
     total = props.sum()
     if total <= 0.0:

@@ -1,5 +1,5 @@
 """The training step: the port of `katacoffee_tpu/train/train.py` on one
-device (the sharded step is ROADMAP Queue 1 item 11).
+device (the sharded step is ROADMAP Queue 1 item 8).
 
 The optimizer is optax's chain in the JAX package (train.py:111-137),
 computed with torch's multi-tensor ops in the same order and rounding:

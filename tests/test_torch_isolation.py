@@ -212,13 +212,13 @@ def test_selfplay_command_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
     from katacoffee_tpu_torch.search.params import SearchParams
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         selfplay.main(["-output-dir", str(tmp_path)], device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     spc = selfplay.SelfplayConfig(batch_size=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         selfplay.run_selfplay_daemon(str(tmp_path), GameConfig(), SearchParams.for_selfplay(), spc, device="cuda")
 
 
@@ -268,7 +268,7 @@ def test_trainer_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
     from katacoffee_tpu_torch.train.train import TrainConfig
 
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         train.main(["-base-dir", str(tmp_path)], device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -277,7 +277,7 @@ def test_trainer_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
     for run in (lambda: train.run_training(str(tmp_path), GameConfig(), TrainConfig(), trc, device="cuda"),
                 lambda: train.run_training_mixed(str(tmp_path), [GameConfig()], TrainConfig(), trc,
                                                  device="cuda")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             run()
     assert os.listdir(tmp_path) == []
 
@@ -332,16 +332,19 @@ def test_gating_entry_points_refuse_the_cpu_without_cuda(tmp_path):
 
 
 def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
-    """`train`, `shuffle`, `validate`, `checkpoint` and `gtp` dispatch to
-    their commands (each here stubbed to echo its arguments); `analysis` and
-    unknown subcommands exit 2 and say they are not ported."""
+    """`train`, `shuffle`, `validate`, `checkpoint`, `gtp`, `analysis`,
+    `evalsgf` and `genconfig` dispatch to their commands (each here stubbed
+    to echo its arguments), `version` and `printclockinfo` print; `demoplay`
+    (not ported yet) and unknown subcommands exit 2 and say they are not
+    ported."""
     from katacoffee_tpu_torch import cli
-    from katacoffee_tpu_torch.command import checkpoint, gtp, selfplay, train, validate
+    from katacoffee_tpu_torch.command import analysis, checkpoint, evalsgf, genconfig, gtp, selfplay, train, validate
     from katacoffee_tpu_torch.dataio import shuffle
 
     assert cli.main([]) == 0
     out = capsys.readouterr().out
-    for cmd in ("selfplay", "train", "shuffle", "validate", "checkpoint", "gtp"):
+    for cmd in ("selfplay", "train", "shuffle", "validate", "checkpoint", "gtp", "analysis", "evalsgf", "genconfig",
+                "version", "printclockinfo"):
         assert cmd in out
     seen = []
     monkeypatch.setattr(selfplay, "main", lambda argv: seen.append(("selfplay", argv)))
@@ -362,8 +365,18 @@ def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
     monkeypatch.setattr(gtp, "main", lambda argv, **kw: seen.append(("gtp", argv, kw)))
     assert cli.main(["gtp", "-config", "c.cfg"]) == 0
     assert seen[5] == ("gtp", ["-config", "c.cfg"], {})
+    monkeypatch.setattr(analysis, "main", lambda argv, **kw: seen.append(("analysis", argv, kw)))
+    monkeypatch.setattr(evalsgf, "main", lambda argv: seen.append(("evalsgf", argv)))
+    monkeypatch.setattr(genconfig, "main", lambda argv: seen.append(("genconfig", argv)))
+    assert cli.main(["analysis", "-config", "a.cfg"]) == 0
+    assert cli.main(["evalsgf", "g.sgf", "-visits", "16"]) == 0
+    assert cli.main(["genconfig", "-output", "o.cfg", "-noninteractive"]) == 0
+    assert seen[6:] == [("analysis", ["-config", "a.cfg"], {}), ("evalsgf", ["g.sgf", "-visits", "16"]),
+                        ("genconfig", ["-output", "o.cfg", "-noninteractive"])]
     capsys.readouterr()
-    for cmd in ("analysis", "nonsense"):
+    assert cli.main(["version"]) == 0 and capsys.readouterr().out == "0.1.0\n"
+    assert cli.main(["printclockinfo"]) == 0 and "Resolution in seconds: " in capsys.readouterr().out
+    for cmd in ("demoplay", "nonsense"):
         assert cli.main([cmd]) == 2
         assert f"{cmd} is not ported" in capsys.readouterr().err
 
@@ -402,3 +415,47 @@ def test_gtp_entry_points_refuse_the_cpu_without_cuda():
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
+
+
+ANALYSIS_MODULES = ("command/analysis.py", "command/evalsgf.py", "command/genconfig.py")
+
+
+def test_the_analysis_modules_are_checked():
+    """The analysis slice's modules are among the sources checked above and
+    among the modules imported without the reference package."""
+    sources = _port_sources()
+    imported = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in PORT.rglob("*.py")}
+    for rel in ANALYSIS_MODULES:
+        assert PORT / rel in sources, rel
+        assert ".".join(Path(rel).with_suffix("").parts) in imported, rel
+
+
+def test_analysis_entry_points_refuse_the_cpu_without_cuda(tmp_path, monkeypatch):
+    """The analysis engine and the analysis, evalsgf and genconfig
+    subcommands raise without CUDA unless given device="cpu"; nothing is
+    read from stdin or written first."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import io
+
+    from katacoffee_tpu_torch import cli
+    from katacoffee_tpu_torch.command import analysis, evalsgf, genconfig
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    monkeypatch.setattr("sys.stdin", io.StringIO('{"id":"a","maxVisits":2}\n'))
+    model = str(ROOT / "tests/goldens/tinynet")
+    sgf = tmp_path / "g.sgf"
+    sgf.write_text("(;FF[4]GM[Coffee]SZ[5]WLL[4];B[cca])\n")
+    for run in (
+        lambda: analysis.AnalysisEngine(SearchParams.for_tests_v2()),
+        lambda: analysis.main([]),
+        lambda: cli.main(["analysis"]),
+        lambda: cli.main(["analysis", "-model", model]),
+        lambda: evalsgf.main([str(sgf), "-visits", "2"]),
+        lambda: cli.main(["evalsgf", str(sgf), "-model", model]),
+        lambda: genconfig.main(["-output", str(tmp_path / "o.cfg"), "-noninteractive", "-model", model]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
+    assert sorted(os.listdir(tmp_path)) == ["g.sgf"]
+    assert analysis.AnalysisEngine(SearchParams.for_tests_v2(), device="cpu").device.type == "cpu"
