@@ -97,12 +97,12 @@ the run with a non-zero exit and a traceback:
      forbidding lanes at depths 1 and more (lanes hit counted) and with one
      forbidding every lane (ignored); (c) a float32 engine's genmoves on
      the card and on the CPU, the same moves and visits;
- 10. the analysis engine, the main path since it was ported
-     (`phase_analysis`): (a) the engine `analysis -model run-s5200` builds
-     (for_tests_v2(), seed 0) over a script through `run()`: a whole-game
-     review of REF_SGFS game 0 (plies 0-20 as one search at B=21, 400
-     visits, ownership, policy, PV visits), twelve one-position queries at
-     200 visits merged into one search padded from 12 lanes to 16 (one
+ 10. the analysis engine (`phase_analysis`): (a) the engine `analysis
+     -model run-s5200` builds (for_tests_v2(), seed 0) over a script
+     through `run()`: a whole-game review of REF_SGFS game 0 (plies 0-20
+     as one search at B=21, 400 visits, ownership, policy, PV visits),
+     twelve one-position queries at 200 visits merged into one search
+     padded from 12 lanes to 16 (one
      avoiding moves to depth 3, one allowing two), a query streamed every
      0.5 s at 200 visits and one terminated while pending, with
      `PathCopies` entered around it: the seconds and root visits/s of each
@@ -113,19 +113,45 @@ the run with a non-zero exit and a traceback:
      restricted lanes counted; (c) a float32 engine on the card and on the
      CPU, the same reports within ANALYSIS_TOL; (d) the command in a
      subprocess fed two queries on a pipe, `evalsgf` and `genconfig -model`
-     in process;
- 11. profiles of a short B=512 search under both profiles and with the
+     in process (its benchmark cut to one timed search);
+ 11. the opening book, the main path since it was ported (`phase_book`):
+     (a) `genbook -model run-s5200` in process (b6c96 bf16, for_tests_v2(),
+     `-batch-size 64`): the book grown by 4 rounds at 16 visits, then 1
+     `-resume` round at the command's width, `-visits 300` (N=302), over
+     64 frontier lanes, with `PathCopies` entered around it (depth cut from
+     10 rounds at 300 visits): each round's wall, lanes, batch, root
+     visits/s, seconds outside `run_search` and nodes; one descent launch
+     a playout and at most two gathers a search; writebook, checkbook (no
+     errors), booktoposes (every position read back as a start position);
+     a profile of a B=64 search of the book's frontier (N=302); (b) each
+     kernel held to its plain version on the B=64 round's copies and timed
+     (the gather at (64,302,8,100), the descent on the deepest copied
+     tree); (c) a float32 book on the card and on the CPU (batch 8, 16
+     visits, 2 rounds), the same keys and edges, floats within BOOK_TOL;
+     (d) dataminesgfs (one B=64 batch at 200 visits over REF_SGFS's
+     games), demoplay (1 game at 16 visits), trystartposes over
+     datamine's output, sampleinitializations -evaluate,
+     perfcount.search_counters (B=64, 64 visits, 3 moves) and
+     flops_accounting with a B=64 forward's share of the bf16 peak; (e)
+     the reference net (refbuild_patches/make_model.py's random b6c96)
+     against the refnn fixtures on the card, card against CPU within
+     REF_TOL, a B=64 search at 100 visits with make_ref_eval_fn, profiled
+     with the line features' launches apart, all with TF32 on for the
+     caller;
+ 12. profiles of a short B=512 search under both profiles and with the
      selfplay command's symmetry-randomizing evaluator (device busy share,
      launches and host syncs per playout), and that evaluator's cost in
-     alternated pairs;
- 12. one log line a timed kernel row (us, bound, launch floor, library
+     2 alternated pairs (3 until the book's phase came); every profile of
+     phases 8-12 runs 5 playouts (10 until the book's B=64 round came,
+     the profiler's own processing being most of a profile's wall);
+ 13. one log line a timed kernel row (us, bound, launch floor, library
      call; for the descent the deepest game's levels and us a level over
-     the floor); the trainer's, the GTP engine's, the analysis engine's
-     and the gatekeeper's numbers as one JSON line each, the kernel table
-     as one JSON line (launches, check and times from phase 10 (a), the
-     earlier paths' launches and the other shapes and trees beside them,
-     each row with `floor_ms`, each descent row with `max_levels` and
-     `us_per_level`), then the result line.
+     the floor); the trainer's, the GTP engine's, the analysis engine's,
+     the gatekeeper's and the book's numbers as one JSON line each, the
+     kernel table as one JSON line (launches and check from phase 11 (a),
+     times on its copies, the earlier paths' launches and the other shapes and
+     trees beside them, each row with `floor_ms`, each descent row with
+     `max_levels` and `us_per_level`), then the result line.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -1791,7 +1817,7 @@ GATE_CFG = "configs/gatekeeper.cfg"
 CHAMPION_DIR = "artifacts/flagship_b6c96/models/run-s4800"
 
 
-def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=10):
+def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=5):
     """The gatekeeper, the main path since the gatekeeper was ported:
     `command.gatekeeper.main` in this process with configs/gatekeeper.cfg as
     it stands (200 games, 150 visits, requiredCandidateWinProp 0.5, seed 0)
@@ -2056,7 +2082,7 @@ def gtp_session(eng, lines) -> list[tuple[str, str, float]]:
     return out
 
 
-def phase_gtp(dev, snapshot_every=200, profile_sims=10, ponder_visits=200, cpu_visits=64, cpu_moves=2,
+def phase_gtp(dev, snapshot_every=200, profile_sims=5, ponder_visits=200, cpu_visits=64, cpu_moves=2,
               cli_visits=100):
     """The GTP engine, the main path of PR 12. (a) `gtp_engine` (400
     visits, graph search, noise pruning, uncertainty, subtree bias, root
@@ -2353,7 +2379,7 @@ def compare_reports(label, a, b, tol=ANALYSIS_TOL) -> float:
     return worst
 
 
-def phase_analysis(dev, snapshot_every=100, profile_sims=10, review_visits=400, batch_visits=200, stream_visits=200,
+def phase_analysis(dev, snapshot_every=100, profile_sims=5, review_visits=400, batch_visits=200, stream_visits=200,
                    cpu_visits=64, cli_visits=100, evalsgf_visits=100):
     """The analysis engine, this slice's main path. (a) `analysis_engine`
     (run-s5200 bf16, for_tests_v2(), seed 0) over `analysis_script` through
@@ -2372,7 +2398,8 @@ def phase_analysis(dev, snapshot_every=100, profile_sims=10, review_visits=400, 
     -m katacoffee_tpu_torch analysis -model` in a subprocess fed two queries
     at `cli_visits` on a pipe (the interactive `select` path); `evalsgf` on
     game 1 before move 6 at 100 visits and `genconfig -noninteractive
-    -model` in process, the config read back."""
+    -model` in process (its benchmark cut to one timed search after the
+    warm-up, 3 until the book's phase came), the config read back."""
     import contextlib
     import io
 
@@ -2522,7 +2549,7 @@ def phase_analysis(dev, snapshot_every=100, profile_sims=10, review_visits=400, 
         kept_bench = benchmark_cmd.benchmark_search
 
         def recording(*args, **kwargs):
-            measured.append(kept_bench(*args, **kwargs))
+            measured.append(kept_bench(*args, **kwargs, reps=1))  # depth cut: 3 timed searches to 1
             return measured[-1]
 
         benchmark_cmd.benchmark_search = recording
@@ -2553,6 +2580,393 @@ def phase_analysis(dev, snapshot_every=100, profile_sims=10, review_visits=400, 
             "forbidden": forbidden, "card_vs_cpu_max_diff": card_cpu, "cli_s": cli_s, "evalsgf_s": evalsgf_s,
             "genconfig_s": genconfig_s, "genconfig_vps": vps, "genconfig_max_visits": gen_visits, **checked,
             "gather_shape": main_shape if main_shape in checked["gather"] else next(iter(checked["gather"]))}
+
+
+BOOK_TOL = 1e-6  # card against CPU, float32 book floats (float32 sums of another order; analysis (c) agreed within 2e-7)
+REF_TOL = 1e-5  # the reference net's float32 forward, card against CPU
+
+
+def _captured(fn, argv, **kwargs) -> tuple[object, str]:
+    """(return value, standard output) of a command's main called in this
+    process."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv, **kwargs)
+    return rc, buf.getvalue()
+
+
+def check_ref_fixtures(model, dev) -> int:
+    """The imported reference net on `dev` against tests/goldens/refnn/*.json
+    (the reference binary's own outputs) at tests/test_refmodel.py's
+    tolerances, each file's positions replayed and evaluated as one batch.
+    Returns the number of positions checked."""
+    import numpy as np
+    import torch
+
+    from katacoffee_tpu_torch.game.board import GameConfig, GameState, init_state, legal_mask_flat, step
+    from katacoffee_tpu_torch.nn.refmodel import ref_compat_features, ref_forward
+
+    checked = 0
+    for path in sorted(Path("tests/goldens/refnn").glob("*.json")):
+        data = json.loads(path.read_text())
+        cfg = GameConfig(data["x"], data["y"], data["win_len"])
+        fixtures = data["fixtures"]
+        n, T = len(fixtures), max(len(fx["moves"]) for fx in fixtures)
+        acts = torch.tensor([[d * cfg.area + my * cfg.x_size + mx for mx, my, d in fx["moves"]]
+                             + [0] * (T - len(fx["moves"])) for fx in fixtures], device=dev)
+        lengths = torch.tensor([len(fx["moves"]) for fx in fixtures], device=dev)
+        st = init_state(cfg, n, dev)
+        for t in range(T):
+            nxt = step(cfg, st, acts[:, t])
+            live = t < lengths
+            st = GameState(*(torch.where(live.reshape((n,) + (1,) * (o.dim() - 1)), x, o) for o, x in zip(st, nxt)))
+        outs = {k: v.cpu().numpy() for k, v in ref_forward(model, *ref_compat_features(cfg, st)).items()}
+        legals = legal_mask_flat(cfg, st).cpu().numpy()
+        for i, fx in enumerate(fixtures):
+            out = {k: v[i] for k, v in outs.items()}
+            legal = legals[i]
+            ref_policy = np.asarray(fx["policy"], np.float32)
+            if not np.array_equal(legal, ref_policy >= 0.0):
+                raise AssertionError(f"ref (e): {path.name} {fx['moves']}: legality differs from the reference's")
+            lg = np.where(legal, out["policy_logits"], -np.inf)
+            p = np.exp(lg - lg[legal].max())
+            p = p / p[legal].sum()
+            np.testing.assert_allclose(p[legal], ref_policy[legal], rtol=2e-3, atol=2e-6)
+            vl = out["value_logits"]
+            wl = np.exp(vl[:2] - vl[:2].max())
+            wl = wl / wl.sum()
+            mover_is_white = len(fx["moves"]) % 2 == 1
+            white_win = wl[0] if mover_is_white else wl[1]
+            np.testing.assert_allclose(white_win, fx["whiteWinProb"], atol=2e-5)
+            np.testing.assert_allclose(1.0 - white_win, fx["whiteLossProb"], atol=2e-5)
+            np.testing.assert_allclose(np.logaddexp(0.0, out["sv"][3]) * 40.0, fx["varTimeLeft"], rtol=2e-4)
+            np.testing.assert_allclose(np.logaddexp(0.0, out["sv"][4] * 0.5) * 0.5, fx["shorttermWinlossError"],
+                                       rtol=2e-4)
+            own = np.tanh(out["ownership"].reshape(-1)) * (1.0 if mover_is_white else -1.0)
+            np.testing.assert_allclose(own, np.asarray(fx["ownership"], np.float32), atol=2e-5)
+            checked += 1
+    return checked
+
+
+def compare_books(label, a, b, tol=BOOK_TOL) -> float:
+    """Two books: the same node keys in order, fields and edges (action,
+    child key, visits); the floats within `tol`. Returns the largest float
+    difference."""
+    if list(a.nodes) != list(b.nodes) or a.best_line() != b.best_line():
+        raise AssertionError(f"{label}: the node keys or best lines differ")
+    worst = 0.0
+    for k, x in a.nodes.items():
+        y = b.nodes[k]
+        exact = ("board", "to_move", "last_spot", "last_dir", "num_turns", "visits", "expanded", "rec_visits")
+        if ([getattr(x, f) for f in exact] != [getattr(y, f) for f in exact]
+                or [(m, e[0], e[2]) for m, e in x.edges.items()] != [(m, e[0], e[2]) for m, e in y.edges.items()]):
+            raise AssertionError(f"{label}: node {k} differs: {x} against {y}")
+        worst = max([worst, abs(x.unexpanded_mass - y.unexpanded_mass)]
+                    + [abs(getattr(x, f) - getattr(y, f)) for f in ("winloss", "draw", "path_prob", "wl_cost",
+                                                                    "book_wl")]
+                    + [abs(e[1] - y.edges[m][1]) for m, e in x.edges.items()])
+    if worst > tol:
+        raise AssertionError(f"{label}: floats part by {worst} > {tol}")
+    return worst
+
+
+def phase_book(dev, grow_rounds=4, grow_visits=16, resume_rounds=1, batch=64, visits=300, snapshot_every=100,
+               profile_sims=5, cpu_batch=8, cpu_visits=16, cpu_rounds=2, mine_visits=200, mine_positions=50,
+               demo_visits=16, try_visits=16, init_num=64, counter_batch=64, counter_visits=64, counter_moves=3,
+               flops_sims=4, ref_batch=64, ref_visits=100, ref_profile_sims=3):
+    """The opening book, this slice's main path, then the other frontends of
+    the slice. (a) `genbook -model run-s5200` (b6c96 bf16, for_tests_v2(),
+    `-batch-size 64`) in this process: the book grown by `grow_rounds`
+    rounds at `grow_visits` visits (the frontier grows from the one empty
+    board, so only a later round has more than 32 nodes to search), then
+    `resume_rounds` `-resume` rounds at the command's width, `-visits 300`
+    (N=302) over a frontier of more than 32 nodes (B=64), with `PathCopies`
+    entered around them (launch counts set to 0 before and read after: one
+    descent launch a playout, at most two gathers a search): each round's
+    wall ended by a sync, lanes and batch, root visits/s over the lanes,
+    the seconds outside `run_search` (the batched child steps and keys, the
+    host copy) and the node count; then writebook, checkbook (no errors)
+    and booktoposes, every position it writes read back as a start
+    position equal to its node; a profile of a B=64 search of the grown
+    book's frontier as `Book.expand` pads it (N=302; launches, host reads
+    and stream syncs a playout by caller). (b) Each kernel held to its
+    plain version on (a)'s copies and timed: the gather at every shape,
+    (64,302,8,100) among them; the descent on the deepest copied tree of
+    the B=64 rounds. (c) A float32 book on the card
+    and on the CPU (batch 8, 16 visits, 2 rounds): the same keys and edges,
+    floats within BOOK_TOL. (d) dataminesgfs (one B=64 batch at 200 visits
+    over the games of REF_SGFS), demoplay (1 game at 16 visits),
+    trystartposes over datamine's output, sampleinitializations -evaluate,
+    perfcount.search_counters (B=64, 64 visits, 3 moves) and
+    flops_accounting (a B=64 forward; FLOPs a row, the share of the bf16
+    peak). (e) The reference net (refbuild_patches/make_model.py's
+    random-weights b6c96) on the card against the refnn fixtures, card
+    against CPU within REF_TOL, and a B=64 search at 100 visits with
+    make_ref_eval_fn, profiled by caller (the line features apart); all of
+    (e) with TF32 switched on for the caller, which ref_forward turns off
+    for itself."""
+    import os
+
+    import torch
+    from torch.profiler import record_function
+
+    from katacoffee_tpu_torch.book import Book
+    from katacoffee_tpu_torch.book import book as book_mod
+    from katacoffee_tpu_torch.book import build_book
+    from katacoffee_tpu_torch.command import genbook, misc
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.dataio.sgf import parse_sgf_file
+    from katacoffee_tpu_torch.game.board import GameConfig, init_state
+    from katacoffee_tpu_torch.nn import refmodel
+    from katacoffee_tpu_torch.nn.features import extract_features
+    from katacoffee_tpu_torch.ops.gather import gather_rows
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.selfplay.startposes import load_startposes
+    from katacoffee_tpu_torch.utils import perfcount
+
+    cfg = GameConfig(5, 5, 4)
+    sp = SearchParams.for_tests_v2()
+    work = Path(tempfile.mkdtemp(prefix="katacoffee_book_"))
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        # (a) the book, through the command
+        book_path = str(work / "book.json")
+        round_log, searches = [], []
+        kept = Book.expand, mcts.run_search
+
+        def timed_search(*args, **kwargs):
+            torch.cuda.synchronize()
+            t, n = time.monotonic(), gather_rows.launches
+            tree = kept[1](*args, **kwargs)
+            torch.cuda.synchronize()
+            searches.append((int(args[3].board.shape[0]), time.monotonic() - t, gather_rows.launches - n))
+            return tree
+
+        def timed_expand(self, keys, sp_, eval_fn, num_visits, *args, **kwargs):
+            torch.cuda.synchronize()
+            n, t = len(searches), time.monotonic()
+            kept[0](self, keys, sp_, eval_fn, num_visits, *args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t
+            inside = sum(s[1] for s in searches[n:])
+            round_log.append({"lanes": len(keys), "batch": searches[-1][0], "wall_s": wall, "search_s": inside,
+                              "outside_s": wall - inside, "nodes": len(self.nodes),
+                              "root_vps": len(keys) * num_visits / wall})
+
+        argv = ["-out", book_path, "-model", MODEL_DIR, "-batch-size", str(batch)]
+        Book.expand, mcts.run_search = timed_expand, timed_search
+        t = time.monotonic()
+        try:
+            printed = _captured(genbook.main_genbook, argv + ["-visits", str(grow_visits), "-rounds",
+                                                              str(grow_rounds)])[1]
+            grown = len(round_log)
+            with PathCopies(snapshot_every) as copies:
+                printed += _captured(genbook.main_genbook, argv + ["-visits", str(visits), "-rounds",
+                                                                   str(resume_rounds), "-resume"])[1]
+        finally:
+            Book.expand, mcts.run_search = kept
+        wall = time.monotonic() - t
+        for i, r in enumerate(round_log):
+            log(f"book (a) round {i}: {r['lanes']} lanes, batch {r['batch']}, "
+                f"{grow_visits if i < grown else visits} visits, {r['wall_s']:.3f} s ({r['search_s']:.3f} s in "
+                f"run_search, {r['outside_s']:.4f} s outside it), {r['root_vps']:.1f} root visits/s over the lanes, "
+                f"{r['nodes']} nodes")
+        timed_rounds, timed_searches = round_log[grown:], searches[grown:]
+        book = Book.load(book_path, dev)
+        log(f"book (a): genbook {grown} rounds at {grow_visits} visits then {resume_rounds} -resume round(s) at "
+            f"{visits}, {wall:.1f} s with both model loads; {len(book.nodes)} nodes; best line {book.best_line()}; "
+            f"launches in the -resume rounds: descend_interior {copies.launches['descend_interior']} for "
+            f"{copies.sims} simulations run, gather_rows {copies.launches['gather_rows']}, "
+            f"{[s[2] for s in timed_searches]} in each of the {len(timed_searches)} searches, the rest in the rounds' "
+            f"readouts (shapes {sorted(copies.gathers)})")
+        if (grown != grow_rounds or len(timed_rounds) != resume_rounds or printed.count("saved ") != 2
+                or any(r["batch"] != batch for r in timed_rounds)):
+            raise AssertionError(f"book (a): {grown} + {len(timed_rounds)} rounds, batches "
+                                 f"{[r['batch'] for r in round_log]}, printed {printed!r}")
+        copies.check_launches("book", batch)
+        in_search = [s[2] for s in timed_searches]
+        if copies.sims != visits * len(timed_searches) or max(in_search) > 2:
+            raise AssertionError(f"book (a): {copies.sims} simulations in {len(timed_searches)} searches, gathers in "
+                                 f"each search {in_search}")
+
+        rc, checkbook = _captured(genbook.main_checkbook, [book_path])
+        edges = sum(len(n.edges) for n in book.nodes.values())
+        if rc != 0 or not checkbook.endswith(f"{len(book.nodes)} nodes, {edges} edges, 0 errors\n"):
+            raise AssertionError(f"book (a): checkbook exit {rc}: {checkbook}")
+        _captured(genbook.main_writebook, [book_path, "-out-dir", str(work / "html")])
+        pages = len(os.listdir(work / "html"))
+        printed = _captured(genbook.main_booktoposes, [book_path, "-out-dir", str(work / "poses")])[1]
+        poses = sorted((work / "poses").iterdir())
+        for p in poses:
+            node = book.nodes[p.stem]
+            board = [[0] * cfg.x_size for _ in range(cfg.y_size)]
+            for x, y, pla in parse_sgf_file(str(p)).placements():
+                board[y][x] = pla
+            if board != node.board:
+                raise AssertionError(f"book (a): {p.name} is not its node's board")
+        pool = load_startposes(cfg, str(work / "poses"), device=dev)
+        if pool is None or pool[0].board.shape[0] != len(poses) or pages != len(book.nodes) + 3:
+            raise AssertionError(f"book (a): {len(poses)} SGFs, {0 if pool is None else pool[0].board.shape[0]} "
+                                 f"start positions read back, {pages} pages")
+        log(f"book (a): checkbook {checkbook.strip()!r}; writebook {pages} files; booktoposes wrote {len(poses)} "
+            f"positions, each its node's board, all read back as start positions")
+
+        keys = book.frontier(batch)
+        keys = keys + [keys[-1]] * (batch - len(keys))  # as Book.expand pads a frontier of more than 32
+        roots = book_mod._node_states(cfg, [book.nodes[k] for k in keys], dev)
+        net = load_exported_model(MODEL_DIR, dev)[0]
+        ev = mcts.make_nn_eval_fn(cfg, net)
+
+        def frontier_search(wrap=lambda name, fn: fn):
+            mcts.run_search(cfg, sp, wrap("net", ev), roots, profile_sims, visits + 2, device=dev)
+            torch.cuda.synchronize()
+
+        prof = phase_profile(dev, f"book frontier search B={batch} (N={visits + 2})", frontier_search, profile_sims)
+
+        # (b) the kernels on the path's copies
+        checked = copies.check("book (b)", cfg)
+
+        # (c) card against CPU, float32
+        t = time.monotonic()
+        books = []
+        for d in (dev, torch.device("cpu")):
+            net32 = load_exported_model(MODEL_DIR, d, torch.float32)[0]
+            books.append(build_book(cfg, sp, mcts.make_nn_eval_fn(cfg, net32), cpu_rounds, cpu_batch, cpu_visits,
+                                    log=lambda *a: None, device=d))
+        card_cpu = compare_books("book (c) card against CPU", *books)
+        log(f"book (c): float32 books on the card and the CPU, batch {cpu_batch}, {cpu_visits} visits, {cpu_rounds} "
+            f"rounds: {len(books[0].nodes)} nodes, keys, edges and best lines equal, floats within {card_cpu:.3g} "
+            f"({time.monotonic() - t:.1f} s)")
+
+        # (d) the other frontends
+        sgfs = work / "sgfs"
+        sgfs.mkdir()
+        for k, line in enumerate(Path(REF_SGFS).read_text().splitlines()):
+            (sgfs / f"g{k:02d}.sgf").write_text(line + "\n")
+        frontends = {}
+        t = time.monotonic()
+        printed = _captured(misc.main_dataminesgfs, [str(sgfs), "-out-dir", str(work / "mined"), "-model",
+                                                      MODEL_DIR, "-visits", str(mine_visits), "-max-positions",
+                                                      str(mine_positions)])[1]
+        frontends["dataminesgfs_s"] = time.monotonic() - t
+        words = printed.split()  # mined K interesting positions from C candidates into D
+        mined, cands = int(words[1]), int(words[5])
+        if not (mine_positions <= cands <= 64 and 0 < mined == len(os.listdir(work / "mined"))):
+            raise AssertionError(f"book (d): dataminesgfs printed {printed!r}")
+        t = time.monotonic()
+        printed = _captured(misc.main_demoplay, ["-model", MODEL_DIR, "-visits", str(demo_visits)])[1]
+        frontends["demoplay_s"] = time.monotonic() - t
+        plies = printed.count(f"visits {demo_visits + 1})")
+        if not printed.splitlines()[-1].startswith("result: ") or f"after {plies} moves" not in printed:
+            raise AssertionError(f"book (d): demoplay printed {printed[-500:]!r}")
+        t = time.monotonic()
+        printed = _captured(misc.main_trystartposes, ["-start-poses-dir", str(work / "mined"), "-model", MODEL_DIR,
+                                                      "-visits", str(try_visits)])[1]
+        frontends["trystartposes_s"] = time.monotonic() - t
+        if not printed.endswith(f"tried {mined} positions at {try_visits} visits\n"):
+            raise AssertionError(f"book (d): trystartposes printed {printed[-500:]!r}")
+        t = time.monotonic()
+        printed = _captured(misc.main_sampleinitializations, ["-model", MODEL_DIR, "-num", str(init_num),
+                                                              "-evaluate"])[1]
+        frontends["sampleinitializations_s"] = time.monotonic() - t
+        if printed.count("raw wl ") != init_num:
+            raise AssertionError(f"book (d): sampleinitializations printed {printed[-500:]!r}")
+        log(f"book (d): dataminesgfs mined {mined} of {cands} candidates at {mine_visits} visits (one B=64 batch) in "
+            f"{frontends['dataminesgfs_s']:.1f} s; demoplay 1 game of {plies} plies at {demo_visits} visits in "
+            f"{frontends['demoplay_s']:.1f} s; trystartposes {mined} positions at {try_visits} visits in "
+            f"{frontends['trystartposes_s']:.1f} s; sampleinitializations -num {init_num} -evaluate in "
+            f"{frontends['sampleinitializations_s']:.1f} s")
+
+        counters = perfcount.search_counters(cfg, sp, ev, init_state, counter_batch, counter_visits, counter_moves,
+                                             device=dev)
+        log(f"book (d): perfcount.search_counters B={counter_batch}, {counter_visits} visits, {counter_moves} "
+            f"moves: {counters}")
+        if counters["rounds_per_move"][0] != counter_visits or counters["visits_per_nn_row"] < 1.0:
+            raise AssertionError(f"book (d): the counters do not reconcile: {counters}")
+        states = init_state(cfg, counter_batch, dev)
+
+        def forward():
+            net(*extract_features(cfg, states))
+
+        def segment():
+            mcts.run_search(cfg, sp, ev, states, flops_sims, device=dev)
+
+        segment()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        segment()
+        torch.cuda.synchronize()
+        seg_s = time.monotonic() - t
+        flops = perfcount.flops_accounting(segment, forward, counter_batch, seg_s, device=dev)
+        forward_ms = eager_ms(forward, 50)
+        flops["forward_ms"] = forward_ms
+        flops["forward_peak_share"] = flops["nn_forward_flops_per_row"] * counter_batch / (forward_ms / 1e3) / BF16_FLOPS
+        log(f"book (d): flops_accounting, b6c96 bf16: {flops['nn_forward_flops_per_row']:.0f} FLOPs a row "
+            f"(FlopCounterMode); one B={counter_batch} forward {forward_ms:.3f} ms between events, "
+            f"{flops['forward_peak_share']:.3%} of the {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 peak; a {flops_sims}-playout "
+            f"B={counter_batch} search {seg_s:.3f} s, {flops['segment_flops']} FLOPs, mfu {flops.get('mfu')} "
+            f"({flops['device_kind']}, {card_line()})")
+        out.update(frontends=frontends, counters=counters, flops=flops)
+
+        # (e) the reference net, TF32 on for the caller (ref_forward turns it
+        # off for itself)
+        t = time.monotonic()
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        (work / "ref").mkdir()
+        subprocess.run([sys.executable, str(Path("refbuild_patches/make_model.py").resolve())], cwd=work / "ref",
+                       check=True, capture_output=True, timeout=120)
+        ref = refmodel.load_ref_model(str(work / "ref/models/coffee-b6c96-random.bin.gz"))
+        fixtures = check_ref_fixtures(ref, dev)
+        pos = random_positions(cfg, 16, seed=5)
+        got = refmodel.ref_forward(ref, *refmodel.ref_compat_features(cfg, pos.map(lambda x: x.to(dev))))
+        want = refmodel.ref_forward(ref, *refmodel.ref_compat_features(cfg, pos))
+        ref_diff = max((got[k].cpu() - want[k]).abs().max().item() for k in want)
+        if ref_diff > REF_TOL:
+            raise AssertionError(f"ref (e): card against CPU {ref_diff} > {REF_TOL}")
+        ref_ev = refmodel.make_ref_eval_fn(cfg, ref)
+        ref_roots = random_positions(cfg, ref_batch, seed=6).map(lambda x: x.to(dev))
+        torch.cuda.synchronize()
+        t_search = time.monotonic()
+        mcts.run_search(cfg, sp, ref_ev, ref_roots, ref_visits, device=dev)
+        torch.cuda.synchronize()
+        ref_search_s = time.monotonic() - t_search
+        kept_lines = refmodel.ref_compat_line_features
+
+        def lines(*args):
+            with record_function("kc::line features"):
+                return kept_lines(*args)
+
+        def ref_search(wrap=lambda name, fn: fn):
+            mcts.run_search(cfg, sp, wrap("net", ref_ev), ref_roots, ref_profile_sims, device=dev)
+            torch.cuda.synchronize()
+
+        refmodel.ref_compat_line_features = lines
+        try:
+            ref_prof = phase_profile(dev, f"ref net search B={ref_batch}", ref_search, ref_profile_sims)
+        finally:
+            refmodel.ref_compat_line_features = kept_lines
+        log(f"ref (e), TF32 on for the caller: {fixtures} fixture positions match the reference binary on the card; "
+            f"card against CPU within "
+            f"{ref_diff:.3g}; a B={ref_batch} search at {ref_visits} visits {ref_search_s:.3f} s "
+            f"({ref_batch * ref_visits / ref_search_s:.1f} root visits/s), line features "
+            f"{ref_prof['by_phase'].get('line features', 0.0):.1f} launches a playout of "
+            f"{ref_prof['launches_per_sim']:.0f} ({time.monotonic() - t:.1f} s)")
+        out["ref"] = {"fixtures": fixtures, "card_vs_cpu_max_diff": ref_diff, "search_s": ref_search_s,
+                      "profile": ref_prof}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        shutil.rmtree(work, ignore_errors=True)
+    main_shape = (batch, visits + 2, 8, cfg.policy_size)
+    return {"wall_s": wall, "rounds": timed_rounds, "grow_rounds": round_log[:grown], "nodes": len(book.nodes),
+            "launches": copies.launches, "sims": copies.sims, "searches": len(timed_searches), "profile": prof,
+            "card_vs_cpu_max_diff": card_cpu, **out, **checked,
+            "visits": visits, "round_widths": sorted({r["batch"] for r in timed_rounds}),
+            "gather_shape": main_shape if main_shape in checked["gather"] else max(checked["gather"])}
 
 
 PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_lookup", "_bias_keys", "_bias_avg",
@@ -2627,7 +3041,7 @@ def phase_profile(dev, label, search, sims=20):
             "by_phase": {k: v / sims for k, v in by_phase.items()}}
 
 
-def profile_searches(dev, cfg, reused_tree, batch=512, sims=10, pairs=3):
+def profile_searches(dev, cfg, reused_tree, batch=512, sims=5, pairs=2):
     """Profiles of `sims` playouts at B=512 b6c96: a fresh search from the
     empty board under the default and the selfplay profile, the selfplay
     one again with the selfplay command's evaluator (a random symmetry per
@@ -2702,11 +3116,11 @@ def log_kernel_rows(gather_entry: dict, descend_entry: dict) -> None:
     def us(x):
         return "n/a" if x is None else f"{x * 1e3:.2f}"
 
-    rows = [(f"analysis {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
+    rows = [(f"book {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
     for label, r in rows:
         log(f"  gather_rows {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
             f"torch.gather {us(r['library_ms'])}, plain {us(r['plain_ms'])}")
-    rows = [(f"analysis B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
+    rows = [(f"book B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
     for label, r in rows:
         log(f"  descend_interior {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
             f"deepest game {r['max_levels']} levels, {r['us_per_level']:.3f} us a level")
@@ -2776,30 +3190,36 @@ def main() -> int:
     log("phase 9: the GTP engine, its kernels' inputs, card against CPU")
     gtp = phase_gtp(dev)
 
-    log("phase 10: the analysis engine (this slice's main path), its kernels' inputs, card against CPU, the "
-        "analysis, evalsgf and genconfig commands")
+    log("phase 10: the analysis engine, its kernels' inputs, card against CPU, the analysis, evalsgf and genconfig "
+        "commands")
     analysis = phase_analysis(dev)
 
-    log("phase 11: profiles")
+    log("phase 11: the opening book (this slice's main path), its kernels' inputs, card against CPU, the misc "
+        "commands, perfcount and the reference net")
+    book = phase_book(dev)
+
+    log("phase 12: profiles")
     profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
     ab = profiles.pop("randomization_ab")
     log("per playout: cudaLaunchKernel " + ", ".join(
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
-    # the kernels line reports the main path (phase 10 (a), the analysis
-    # engine): its launches, and each kernel's check and times on the inputs
-    # that path gave it (the c-batch's); the earlier paths' launches and
-    # times beside them (the trainer's path, phase 7, launches neither)
-    paths = (command, gate, gtp, analysis)
-    shape = analysis["gather_shape"]
-    t = gather_row(analysis["gather"][shape], floor)
+    # the kernels line reports the main path (phase 11 (a), the book's B=64
+    # rounds): its launches, and each kernel's check and times on the inputs
+    # that path gave it; the earlier paths' launches and times beside them
+    # (the trainer's path, phase 7, launches neither)
+    paths = (command, gate, gtp, analysis, book)
+    shape = book["gather_shape"]
+    t = gather_row(book["gather"][shape], floor)
     gather_entry = {
         "name": "gather_rows",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/gather_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
-        "launches": analysis["launches"]["gather_rows"],
+        "launches": book["launches"]["gather_rows"],
+        "searches_book_path": book["searches"],
+        "launches_analysis_path": analysis["launches"]["gather_rows"],
         "launches_gtp_path": gtp["launches"]["gather_rows"],
         "launches_gatekeeper_path": gate["launches"]["gather_rows"],
         "launches_selfplay_command_path": command["launches"]["gather_rows"],
@@ -2817,21 +3237,26 @@ def main() -> int:
         "launches_default_path": search["launches"]["gather_rows"],
         "launches_per_search_default_path": search["per_search"]["gather_rows"],
         "other_shapes": {
-            **{f"analysis {list(s)}": gather_row(v, floor) for s, v in analysis["gather"].items() if s != shape},
+            **{f"book {list(s)}": gather_row(v, floor) for s, v in book["gather"].items() if s != shape},
+            **{f"analysis {list(s)}": gather_row(v, floor) for s, v in analysis["gather"].items()},
             **{f"gtp {list(s)}": gather_row(v, floor) for s, v in gtp["gather"].items()},
             **{f"gatekeeper {list(s)}": gather_row(v, floor) for s, v in gate["gather"].items()},
             **{f"selfplay command {list(s)}": gather_row(v, floor) for s, v in command["gather"].items()},
             **{f"random inputs {list(s)}": gather_row(v, floor) for s, v in kern["timings"].items()},
         },
     }
-    timed = descent_row(analysis["descent"][16], floor)
+    # the deepest tree of the book's B=64 rounds
+    width = max(book["round_widths"], key=lambda b: book["descent"][b]["max_levels"])
+    timed = descent_row(book["descent"][width], floor)
     descend_entry = {
         "name": "descend_interior",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/descend_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
         "also_replaces": "katacoffee_tpu/search/mcts.py:1267",
-        "launches": analysis["launches"]["descend_interior"],
+        "launches": book["launches"]["descend_interior"],
+        "simulations_run_book": book["sims"],
+        "launches_analysis_path": analysis["launches"]["descend_interior"],
         "simulations_run_analysis": analysis["sims"],
         "forbidden_lanes_hit_analysis": analysis["forbidden"],
         "launches_gtp_path": gtp["launches"]["descend_interior"],
@@ -2856,7 +3281,8 @@ def main() -> int:
         "shape": timed["shape"],
         "timed_levels": timed["timed_levels"],
         "other_trees": {
-            **{f"analysis B={b}": descent_row(v, floor) for b, v in analysis["descent"].items() if b != 16},
+            **{f"book B={b}": descent_row(v, floor) for b, v in book["descent"].items() if b != width},
+            **{f"analysis B={b}": descent_row(v, floor) for b, v in analysis["descent"].items()},
             **{f"gtp B={b}": descent_row(v, floor) for b, v in gtp["descent"].items()},
             **{f"gatekeeper B={b}": descent_row(v, floor) for b, v in gate["descent"].items()},
             **{f"selfplay command B={b}": descent_row(v, floor) for b, v in command["descent"].items()},
@@ -2882,7 +3308,11 @@ def main() -> int:
     own = [r["own_s"] / r["wall_s"] for r in command["rows_runs"]]
     searches = ", ".join(f"lanes {s['lanes']} batch {s['batch']} at {s['visits']} visits {s['seconds']:.3f} s "
                          f"({s['root_vps']:.1f} root visits/s)" for s in analysis["searches"])
-    log(f"phase 12: done; analysis searches {searches} ({analysis['profile']['launches_per_sim']:.0f} launches, "
+    rounds = ", ".join(f"{r['lanes']} lanes at B={r['batch']} {r['wall_s']:.3f} s ({r['root_vps']:.1f} root visits/s, "
+                       f"{r['outside_s']:.4f} s outside run_search)" for r in book["rounds"])
+    log(f"phase 13: done; book rounds at {book['visits']} visits: {rounds} ({book['profile']['launches_per_sim']:.0f} launches, "
+        f"{book['profile']['syncs_per_sim']:.2f} host reads and {book['profile']['stream_syncs_per_sim']:.2f} stream "
+        f"syncs a playout at B=64); analysis searches {searches} ({analysis['profile']['launches_per_sim']:.0f} launches, "
         f"{analysis['profile']['syncs_per_sim']:.2f} host reads and {analysis['profile']['stream_syncs_per_sim']:.2f} "
         f"stream syncs a playout at B=16); gtp genmoves at {gtp['visits']} visits in "
         + ", ".join(f"{x:.3f}" for x in gtp["genmove_s"]) + f" s ({gtp['profile']['launches_per_sim']:.0f} launches, "
@@ -2908,6 +3338,8 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"gatekeeper": {k: v for k, v in gate.items() if k not in ("gather", "descent")}},
                      default=str), flush=True)
+    print(json.dumps({"book": {k: v for k, v in book.items() if k not in ("gather", "descent")}}, default=str),
+          flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)
     print(json.dumps({
         "ok": True,

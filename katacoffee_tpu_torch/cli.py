@@ -2,8 +2,11 @@
 (the JAX package's `katacoffee_tpu/cli.py`). The ported subcommands are
 `selfplay`, `shuffle`, `train`, `validate`, `checkpoint`, `gatekeeper`,
 `match`, `loop`, `summarize_sgfs`, `benchmark`, `gtp`, `analysis`,
-`evalsgf`, `genconfig`, `version` and `printclockinfo`; any other exits
-non-zero and says so."""
+`evalsgf`, `genconfig`, `genbook`, `writebook`, `checkbook`, `booktoposes`,
+`demoplay`, `samplesgfs`, `dataminesgfs`, `viewstartposes`,
+`trystartposes`, `sampleinitializations`, `runtests`, `version` and
+`printclockinfo`; any other (`serve`, `contribute`) exits non-zero and says
+so."""
 
 from __future__ import annotations
 
@@ -55,16 +58,49 @@ Usage: python -m katacoffee_tpu_torch <subcommand> [args]
             [-target-seconds-per-move S]
                write a GTP config (maxVisits from a visits/s benchmark on
                the GPU with -model)
+  genbook -out BOOK.json [-model MODEL_DIR] [-rounds R] [-batch-size B]
+          [-visits V] [-resume] [-seed S]
+               grow an opening book, each round one batched search on the GPU
+  writebook BOOK.json -out-dir DIR [-max-nodes N]
+               static HTML pages of the book
+  checkbook BOOK.json
+               consistency check of the book
+  booktoposes BOOK.json -out-dir DIR [-min-turns T]
+               the book's positions as SGF start positions
+  demoplay [-model MODEL_DIR] [-visits V] [-games G] [-seed S]
+               watch the engine play itself on the GPU
+  samplesgfs SGF_DIR... -out-dir DIR [-sample-prob P] [-min-turn T]
+             [-max-turn T] [-seed S]
+               sample SGF prefixes into a startposes dir
+  dataminesgfs SGF_DIR... -out-dir DIR [-model MODEL_DIR] [-visits V]
+               [-batch-size B] [-sample-prob P] [-max-positions N]
+               [-surprise-threshold F] [-seed S]
+               keep the SGF positions a batched search finds surprising
+  viewstartposes -start-poses-dir DIR [-min-weight W] [-idx I]
+                 [-turn-weight-lambda L]
+               print start positions, their weights and hints
+  trystartposes -start-poses-dir DIR [-model MODEL_DIR] [-visits V]
+                [-min-weight W] [-max-positions N]
+               one batched search over start positions, the chosen moves
+  sampleinitializations [-model MODEL_DIR] [-num N] [-evaluate]
+                        [-area-prop P] [-temperature T] [-seed S]
+               policy-sampled openings as the selfplay actor makes them
+  runtests [PYTEST_ARGS...]
+               pytest tests/ -q
   version      print the version
   printclockinfo
                print the monotonic clock's resolution
 
-Every other subcommand of `python -m katacoffee_tpu` is not ported yet.
+`serve` and `contribute` of `python -m katacoffee_tpu` are not ported yet.
 """
 
 
 # subcommands whose command module's main(argv) runs them
 _COMMANDS = ("gatekeeper", "match", "loop", "summarize_sgfs", "benchmark", "evalsgf", "genconfig")
+# subcommands run by command/genbook.py's and command/misc.py's main_<cmd>(argv)
+_BOOK_COMMANDS = ("genbook", "writebook", "checkbook", "booktoposes")
+_MISC_COMMANDS = ("demoplay", "samplesgfs", "dataminesgfs", "viewstartposes", "trystartposes",
+                  "sampleinitializations")
 
 
 def _shuffle(args: list[str]) -> int:
@@ -178,6 +214,19 @@ def main(argv: list[str] | None = None) -> int:
 
         importlib.import_module(f"katacoffee_tpu_torch.command.{cmd}").main(args)
         return 0
+    if cmd in _BOOK_COMMANDS:
+        from katacoffee_tpu_torch.command import genbook
+
+        return getattr(genbook, f"main_{cmd}")(args) or 0
+    if cmd in _MISC_COMMANDS:
+        from katacoffee_tpu_torch.command import misc
+
+        getattr(misc, f"main_{cmd}")(args)
+        return 0
+    if cmd == "runtests":
+        import subprocess
+
+        return subprocess.call([sys.executable, "-m", "pytest", "tests/", "-q"] + args)
     print(f"katacoffee_tpu_torch: {cmd} is not ported (or unknown); python -m katacoffee_tpu {cmd} runs the JAX "
           f"package's\n\n{_HELP}", file=sys.stderr)
     return 2

@@ -376,7 +376,7 @@ def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
     capsys.readouterr()
     assert cli.main(["version"]) == 0 and capsys.readouterr().out == "0.1.0\n"
     assert cli.main(["printclockinfo"]) == 0 and "Resolution in seconds: " in capsys.readouterr().out
-    for cmd in ("demoplay", "nonsense"):
+    for cmd in ("serve", "nonsense"):
         assert cli.main([cmd]) == 2
         assert f"{cmd} is not ported" in capsys.readouterr().err
 

@@ -139,8 +139,8 @@ def test_cli_runs_the_gating_subcommands(capsys, monkeypatch):
         assert cli.main([cmd, "-x", cmd]) == 0
     gating = ("gatekeeper", "match", "loop", "summarize_sgfs", "benchmark")
     assert seen == [(c, ["-x", c]) for c in gating] and set(gating) <= set(cli._COMMANDS)
-    assert cli.main(["demoplay"]) == 2
-    assert "demoplay is not ported" in capsys.readouterr().err
+    assert cli.main(["serve"]) == 2
+    assert "serve is not ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("text", ["", "xSize = 6\nwinLen = 3\nuseUncertainty = false\npolicyOptimism = 0.5\n"
