@@ -6,7 +6,8 @@ checks it. Usage, from the root of the repository:
 
 Phases, each printed with the seconds since start; the first failure ends
 the run with a non-zero exit and a traceback:
-  0. arm a 1100 s watchdog; print the card (nvidia-smi) and torch's version;
+  0. arm a 1160 s watchdog (1100 until the H100 hosts were seen to run
+     the script 1.3x slower than one another); print the card (nvidia-smi) and torch's version;
      turn TF32 off so float32 means float32 in every comparison;
   1. build the two CUDA kernels and the empty kernel (the launch floor)
      from the repo's sources, the nvcc runs at once, and print their
@@ -68,7 +69,9 @@ the run with a non-zero exit and a traceback:
      neither kernel (the JAX trainer reaches no Pallas kernel);
   8. the gatekeeper: (a)
      `command.gatekeeper.main` in this process with configs/gatekeeper.cfg
-     as it stands (200 games at 150 visits, b6c96 bf16, for_gatekeeper():
+     and `-override-config maxVisits=32` (200 games at 32 visits; 64 until
+     the script met a slow host, 150, the config's, until the contribution
+     bus's phase came; b6c96 bf16, for_gatekeeper():
      uncertainty weighting and policy optimism) gating run-s5200 against
      run-s4800, with both kernels' launch counts set to 0 before and read
      after and their inputs copied (`PathCopies`, as in phase 6): wall,
@@ -84,14 +87,16 @@ the run with a non-zero exit and a traceback:
      visits, 16 until the analysis phase came);
   9. the GTP engine (`phase_gtp`): (a)
      the engine `gtp -config configs/gtp_example.cfg -model run-s5200`
-     builds (400 visits; graph search, noise pruning, uncertainty, subtree
-     bias, root symmetry pruning) over a scripted session (two genmoves,
-     four until the analysis phase came,
+     builds (graph search, noise pruning, uncertainty, subtree bias, root
+     symmetry pruning; its 400 visits cut to 200 and the ponder's 200 to
+     100 until the script met a slow host) over a scripted session (two
+     genmoves, four until the analysis phase came,
      kata-analyze with ownership, again with an avoid of its best move,
      kata-raw-nn, genmove_debug), with both kernels' launch counts set to 0
      before and read after and their inputs copied (`PathCopies`): the
      replies, seconds and root visits/s of each genmove, a B=1 profile;
-     one genmove through the command in a subprocess; a ponder and a
+     one genmove through the command in a subprocess, run beside the
+     session since the script met a slow host; a ponder and a
      genmove that starts from it; (b) each kernel held to its plain version
      on the copies and timed, the descent also with an avoid_until mask
      forbidding lanes at depths 1 and more (lanes hit counted) and with one
@@ -138,20 +143,46 @@ the run with a non-zero exit and a traceback:
      REF_TOL, a B=64 search at 100 visits with make_ref_eval_fn, profiled
      with the line features' launches apart, all with TF32 on for the
      caller;
- 12. profiles of a short B=512 search under both profiles and with the
+ 12. the contribution bus and two ranks, the main path since they were
+     ported (`phase_contribute`): (a) a `ContributionServer` in a thread
+     over a base dir whose models/ links run-s5200 (the server's width,
+     B=64, b6c96 bf16, for_selfplay(); 16 visits, cut from 600, so that
+     every game ends inside one 26-move cycle) and a `ContributeClient` on
+     the card running one cycle with `PathCopies` entered around it (one
+     descent launch a playout, at most two gathers a search): wall, rows,
+     rows/s, seconds uploading, the shard read back with the JAX schema's
+     keys and dtypes, every SGF replayed to its winner; (b) each kernel
+     held to its plain version on (a)'s copies and timed; (c) a rating
+     task (run-s4800 added, 8 games at 16 visits), the server's SGFs
+     tallied by `summarize_sgfs` to the client's result; (d) `contribute
+     -max-cycles 1` in a subprocess (16 games at 8 visits), exit 0 and its
+     rows stored; (e) two ranks through `launch_local` (NCCL over two GPUs
+     where two are visible, else gloo on cuda:0, printed): 10 float32
+     b6c96 steps at a global B=256 from the flagship checkpoint on phase
+     7's shuffled rows against one process's with the same draws (within
+     RANKS_TOL, the ranks bit-equal), then the daemon at a global B=64,
+     16 visits, 1 segment of 26 moves, both ranks' shards and SGFs read
+     back; (e) runs beside (c), in a thread. Paid for by phase 8 (a)'s
+     gate, cut from 150 visits to 64, then to 32 with phase 9's session;
+ 13. profiles of a short B=512 search under both profiles and with the
      selfplay command's symmetry-randomizing evaluator (device busy share,
      launches and host syncs per playout), and that evaluator's cost in
      2 alternated pairs (3 until the book's phase came); every profile of
-     phases 8-12 runs 5 playouts (10 until the book's B=64 round came,
+     phases 8-13 runs 5 playouts (10 until the book's B=64 round came,
      the profiler's own processing being most of a profile's wall);
- 13. one log line a timed kernel row (us, bound, launch floor, library
+ 14. one log line a timed kernel row (us, bound, launch floor, library
      call; for the descent the deepest game's levels and us a level over
      the floor); the trainer's, the GTP engine's, the analysis engine's,
-     the gatekeeper's and the book's numbers as one JSON line each, the
-     kernel table as one JSON line (launches and check from phase 11 (a),
-     times on its copies, the earlier paths' launches and the other shapes and
-     trees beside them, each row with `floor_ms`, each descent row with
-     `max_levels` and `us_per_level`), then the result line.
+     the gatekeeper's, the book's and the contribution bus's numbers as
+     one JSON line each, the kernel table as one JSON line (launches and
+     check from phase 12 (a), times on its copies, the earlier paths'
+     launches and the other shapes and trees beside them, each row with
+     `floor_ms`, each descent row with `max_levels` and `us_per_level`),
+     then the result line; then the process leaves by `os._exit` with
+     main's code, its output flushed and every process it started ended,
+     without the interpreter's teardown (a teardown of this process, after
+     its last line, has hung until the watchdog with the main thread in no
+     Python frame).
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -161,12 +192,14 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1258,10 +1291,21 @@ def replay_sgfs(cfg, paths, dev):
     return G
 
 
+# the shard schema of the JAX package's batch_to_arrays (katacoffee_tpu/dataio/trainingwrite.py:53-85)
+SHARD_DTYPES = {
+    "schema_version": "int32", "board_shape": "int32", "board": "int8", "to_move": "int8", "recent_spots": "int16",
+    "recent_dirs": "int8", "num_turns": "int16", "policy_target": "float16", "opponent_policy_target": "float16",
+    "value_target": "float16", "td_value_targets": "float16", "ownership": "int8", "line_target": "int8",
+    "futurepos": "int8", "var_time_left": "float32", "shortterm_value": "float32", "weight": "float32",
+    "opponent_policy_weight": "float32", "aux_weight": "float32",
+}
+
 def read_daemon_rows(cfg, out, model, dev):
-    """Every shard the daemon wrote for `model`, read back through the
-    port's reader and rows_to_batch and checked; returns the rows
-    concatenated by key (numpy) and the SGF paths."""
+    """Every shard written for `model` under `out` (the daemon's or the
+    contribution server's layout), read back through the port's reader and
+    rows_to_batch and checked, the JAX schema's keys and dtypes among the
+    checks; returns the rows concatenated by key (numpy) and the SGF
+    paths."""
     import os
 
     import numpy as np
@@ -1273,6 +1317,9 @@ def read_daemon_rows(cfg, out, model, dev):
     cols = {k: [] for k in _ROW_KEYS}
     for path in iter_shards(tdata):
         data = read_npz_rows(path)
+        dtypes = {k: str(v.dtype) for k, v in data.items()}
+        if dtypes != SHARD_DTYPES:
+            raise AssertionError(f"{path}: keys and dtypes {dtypes}, not the JAX schema's")
         batch = rows_to_batch(data, cfg, device=dev)
         ok = (bool((batch.weight > 0).all()) and bool(torch.isin(batch.states.board, torch.tensor(
             [0, 1, 2], device=dev, dtype=torch.int8)).all()) and bool(((batch.states.to_move == 1)
@@ -1817,15 +1864,17 @@ GATE_CFG = "configs/gatekeeper.cfg"
 CHAMPION_DIR = "artifacts/flagship_b6c96/models/run-s4800"
 
 
-def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=5):
+def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=5, visits=32):
     """The gatekeeper, the main path since the gatekeeper was ported:
-    `command.gatekeeper.main` in this process with configs/gatekeeper.cfg as
-    it stands (200 games, 150 visits, requiredCandidateWinProp 0.5, seed 0)
+    `command.gatekeeper.main` in this process with configs/gatekeeper.cfg
+    (200 games, requiredCandidateWinProp 0.5, seed 0), its 150 visits cut to
+    `visits` by an override (64 until the script met a slow host, 150 until
+    the contribution bus's phase came),
     on a base dir under `root` holding copies of run-s4800 as the champion
     in models/ and run-s5200 as the candidate in modelstobetested/, both
     b6c96 bf16 on the card, under for_gatekeeper(). With `PathCopies`
     entered around it (launch counts set to 0 before and read after; one
-    descent launch per simulation run, two searches of 150 simulations a
+    descent launch per simulation run, two searches of `visits` simulations a
     ply): the wall, games/s, plies until every game ended, searched visits/s
     (every game of both halves searched at every ply) and the same counting
     live games only, the tally, the decision and where the candidate
@@ -1848,8 +1897,7 @@ def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=5):
     cand, champ = os.path.basename(MODEL_DIR), os.path.basename(CHAMPION_DIR)
     shutil.copytree(CHAMPION_DIR, os.path.join(base, "models", champ))
     shutil.copytree(MODEL_DIR, os.path.join(base, "modelstobetested", cand))
-    c = ConfigParser(GATE_CFG)
-    visits, required = c.get_int("maxVisits"), c.get_float("requiredCandidateWinProp")
+    required = ConfigParser(GATE_CFG).get_float("requiredCandidateWinProp")
     kept = command.run_match
     matches = []
 
@@ -1865,7 +1913,8 @@ def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=5):
     try:
         with PathCopies(snapshot_every) as copies:
             t = time.monotonic()
-            command.main(["-base-dir", base, "-config", GATE_CFG, "-quit-if-no-candidates"], device=dev)
+            command.main(["-base-dir", base, "-config", GATE_CFG, "-override-config", f"maxVisits={visits}",
+                          "-quit-if-no-candidates"], device=dev)
             torch.cuda.synchronize()
             wall = time.monotonic() - t
     finally:
@@ -2040,12 +2089,14 @@ GTP_CFG = "configs/gtp_example.cfg"
 GTP_WINRATE_TOL = 2e-4  # tests/torch_parity.py assert_same_search: float32 sums of another order
 
 
-def gtp_engine(dev, dtype=None, **kw):
+def gtp_engine(dev, dtype=None, visits=None, **kw):
     """The GTP engine as `python -m katacoffee_tpu_torch gtp -config GTP_CFG
     -model MODEL_DIR` builds it (command/gtp.py `main`, cli.py `_gtp`):
     configs/gtp_example.cfg over SearchParams.for_tests_v2(), run-s5200 on
     `dev` (bf16 trunk unless `dtype`), its evaluator and cached full-head
-    forward. Returns (GTPEngine, SearchParams, GameConfig, maxVisits)."""
+    forward; `visits` in place of the config's maxVisits, as
+    `-override-config maxVisits=...` gives it. Returns (GTPEngine,
+    SearchParams, GameConfig, maxVisits)."""
     from katacoffee_tpu_torch.command.gtp import GTPEngine
     from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
     from katacoffee_tpu_torch.program.setup import load_game_config, load_search_params
@@ -2058,7 +2109,7 @@ def gtp_engine(dev, dtype=None, **kw):
     model, cfg, _ = load_exported_model(MODEL_DIR, dev, dtype)
     if load_game_config(c) != cfg:
         raise AssertionError(f"{GTP_CFG} plays {load_game_config(c)}, the model {cfg}")
-    visits = c.get_int("maxVisits")
+    visits = visits or c.get_int("maxVisits")
     eng = GTPEngine(cfg, sp, mcts.make_nn_eval_fn(cfg, model), max_visits=visits,
                     raw_fwd=mcts.make_cached_raw_forward_fn(cfg, model), device=dev, **kw)
     return eng, sp, cfg, visits
@@ -2082,10 +2133,10 @@ def gtp_session(eng, lines) -> list[tuple[str, str, float]]:
     return out
 
 
-def phase_gtp(dev, snapshot_every=200, profile_sims=5, ponder_visits=200, cpu_visits=64, cpu_moves=2,
+def phase_gtp(dev, snapshot_every=200, profile_sims=5, visits=200, ponder_visits=100, cpu_visits=64, cpu_moves=2,
               cli_visits=100):
-    """The GTP engine, the main path of PR 12. (a) `gtp_engine` (400
-    visits, graph search, noise pruning, uncertainty, subtree bias, root
+    """The GTP engine, the main path when it was ported. (a) `gtp_engine` (`visits`,
+    cut from the config's 400; graph search, noise pruning, uncertainty, subtree bias, root
     symmetry pruning; ponder off) over a scripted session: clear_board, two
     genmoves of alternating colour, kata-analyze b maxmoves 3 ownership
     true, the same with `avoid b <its best move> 1`, kata-raw-nn 0,
@@ -2093,9 +2144,10 @@ def phase_gtp(dev, snapshot_every=200, profile_sims=5, ponder_visits=200, cpu_vi
     counts set to 0 before and read after, one descent launch a simulation);
     each reply checked and printed with its seconds, root visits/s a
     genmove; a profile of a B=1 search of the same params (launches and host
-    syncs a playout); then one `genmove b` through `python -m
+    syncs a playout); one `genmove b` through `python -m
     katacoffee_tpu_torch gtp -config ... -model ...` in a subprocess, at
-    `cli_visits` (-override-config maxVisits); then a
+    `cli_visits` (-override-config maxVisits), started before the session
+    and read after it; then a
     ponder of `ponder_visits` and a genmove that starts from the pondered
     root. (b) Each kernel held to its plain version on the session's copies
     (noise pruning: all five scratch fields, rank_c included) and timed;
@@ -2111,18 +2163,31 @@ def phase_gtp(dev, snapshot_every=200, profile_sims=5, ponder_visits=200, cpu_vi
     from katacoffee_tpu_torch.game import io as gio
     from katacoffee_tpu_torch.search import mcts
 
-    eng, sp, cfg, visits = gtp_engine(dev)
-    log(f"gtp (a): {GTP_CFG} over for_tests_v2(): {visits} visits, useGraphSearch {sp.useGraphSearch}, "
-        f"useNoisePruning {sp.useNoisePruning}, useUncertainty {sp.useUncertainty}, subtreeValueBiasFactor "
-        f"{sp.subtreeValueBiasFactor}, rootSymmetryPruning {sp.rootSymmetryPruning}; run-s5200 bf16")
+    eng, sp, cfg, visits = gtp_engine(dev, visits=visits)
+    log(f"gtp (a): {GTP_CFG} over for_tests_v2(): {visits} visits (-override-config maxVisits), useGraphSearch "
+        f"{sp.useGraphSearch}, useNoisePruning {sp.useNoisePruning}, useUncertainty {sp.useUncertainty}, "
+        f"subtreeValueBiasFactor {sp.subtreeValueBiasFactor}, rootSymmetryPruning {sp.rootSymmetryPruning}; run-s5200 bf16")
     genmoves = ["genmove b", "genmove w"]
     analyze = "kata-analyze b maxmoves 3 ownership true"
-    t = time.monotonic()
-    with PathCopies(snapshot_every) as copies:
-        session = gtp_session(eng, ["clear_board", *genmoves, analyze])
-        best = session[-1][1].split()[3]
-        session += gtp_session(eng, [f"{analyze} avoid b {best} 1", "kata-raw-nn 0", "genmove_debug b", "quit"])
-    wall = time.monotonic() - t
+    t_cli = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", "katacoffee_tpu_torch", "gtp", "-config", GTP_CFG,
+                             "-override-config", f"maxVisits={cli_visits}", "-model", MODEL_DIR],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        proc.stdin.write("genmove b\nquit\n")
+        proc.stdin.flush()
+        t = time.monotonic()
+        with PathCopies(snapshot_every) as copies:
+            session = gtp_session(eng, ["clear_board", *genmoves, analyze])
+            best = session[-1][1].split()[3]
+            session += gtp_session(eng, [f"{analyze} avoid b {best} 1", "kata-raw-nn 0", "genmove_debug b", "quit"])
+        wall = time.monotonic() - t
+        cli_out, cli_err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    cli_s = time.monotonic() - t_cli
     replies = {line: reply for line, reply, _ in session}
     for line, reply, _ in session:
         if not reply.startswith("="):
@@ -2155,17 +2220,12 @@ def phase_gtp(dev, snapshot_every=200, profile_sims=5, ponder_visits=200, cpu_vi
 
     prof = phase_profile(dev, "gtp B=1 fresh", search, profile_sims)
 
-    t = time.monotonic()
-    proc = subprocess.run([sys.executable, "-m", "katacoffee_tpu_torch", "gtp", "-config", GTP_CFG,
-                           "-override-config", f"maxVisits={cli_visits}", "-model", MODEL_DIR],
-                          input="genmove b\nquit\n", capture_output=True, text=True, timeout=300)
-    cli_s = time.monotonic() - t
-    cli_reply = proc.stdout.strip().splitlines()[0] if proc.stdout.strip() else ""
+    cli_reply = cli_out.strip().splitlines()[0] if cli_out.strip() else ""
     log(f"gtp (a): python -m katacoffee_tpu_torch gtp -config {GTP_CFG} -override-config maxVisits={cli_visits} "
         f"-model {MODEL_DIR}: 'genmove b' -> {cli_reply!r}, exit {proc.returncode}, {cli_s:.1f} s with the "
-        f"process's start")
+        f"process's start, beside the session")
     if proc.returncode != 0 or not cli_reply.startswith("= "):
-        raise AssertionError(f"gtp: the command failed: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        raise AssertionError(f"gtp: the command failed: {cli_out[-2000:]}{cli_err[-2000:]}")
     gio.parse_loc(cli_reply[2:], cfg)
 
     engine.clear_board()
@@ -2973,6 +3033,310 @@ PROFILED = ("_descend_root", "_descend_interior", "_recompute_node", "_hash_look
             "_root_eval", "_tree_from_root_eval", "advance_root")
 
 
+RANKS_TOL = 1e-5  # the trainer's card bound: two ranks against one process, |d| <= tol * max(|x|, 1) a leaf
+
+
+def rank_phase(rows: dict, syms, levels, batch: int, steps: int, sp_dir: str, sp_batch: int, visits: int,
+               moves: int) -> dict:
+    """One rank of phase 12 (e), started by `launch_local`: `steps` float32
+    b6c96 steps of `make_sharded_train_step` from the flagship checkpoint on
+    the rank's block of each global batch of `batch` rows with the global
+    draws, then the selfplay daemon at a global B=`sp_batch` into `sp_dir`.
+    Returns the rank's state (flattened), metrics and rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from katacoffee_tpu_torch.command.selfplay import SelfplayConfig, run_selfplay_daemon
+    from katacoffee_tpu_torch.dataio import checkpoints as ckpt
+    from katacoffee_tpu_torch.dataio.trainingwrite import rows_to_batch
+    from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.nn.configs import get_model_spec
+    from katacoffee_tpu_torch.nn.model import CoffeeNet
+    from katacoffee_tpu_torch.parallel import mesh
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.train import train as train_mod
+    from katacoffee_tpu_torch.utils.logger import Logger
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = mesh.world()
+    dev = mesh.rank_device("cuda")
+    cfg = GameConfig(5, 5, 4)
+    f32 = dataclasses.replace(get_model_spec("b6c96"), dtype=torch.float32)
+    state, _ = ckpt.load_checkpoint(FLAGSHIP_CKPT, train_mod.init_train_state(CoffeeNet(f32, cfg.win_len).to(dev)))
+    with torch.no_grad():
+        mesh.broadcast_from_zero([*state.model.parameters(), *state.trace.values(), *state.ema.values()])
+    step = train_mod.make_sharded_train_step(cfg, train_mod.TrainConfig(), batch, world)
+    metrics = []
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for i in range(steps):
+        block = {k: mesh.rank_rows(torch.from_numpy(v[i * batch:(i + 1) * batch]), rank, world).numpy()
+                 for k, v in rows.items()}
+        state, m = step(state, rows_to_batch(block, cfg, dev),
+                        draws=train_mod.StepDraws(syms[i].to(dev), levels[i].to(dev)))
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    train_s = time.monotonic() - t
+    tree = {k: np.asarray(v) for k, v in ckpt.flatten(ckpt.state_to_tree(state)).items()}
+    spc = SelfplayConfig(batch_size=sp_batch, num_sims=visits, moves_per_segment=moves, max_segments=1, seed=0)
+    t = time.monotonic()
+    total = run_selfplay_daemon(sp_dir, cfg, SearchParams.for_selfplay(), spc, Logger(), device=dev)
+    torch.cuda.synchronize()
+    return {"rank": rank, "world": world, "device": str(dev), "card": torch.cuda.get_device_name(dev),
+            "tree": tree, "metrics": metrics, "train_s": train_s, "selfplay_rows": total,
+            "selfplay_s": time.monotonic() - t}
+
+
+def phase_ranks(dev, cfg, sp_dir, shuffled, n, visits=16, moves=26, train_batch=256, train_steps=10, sp_batch=64,
+                label="ranks"):
+    """`n` ranks through `launch_local`, NCCL over cuda:0..n-1 where n GPUs
+    are visible, else all on cuda:0 over gloo (named): `train_steps`
+    float32 b6c96 steps at a global B=`train_batch` from the flagship
+    checkpoint on the rows of `shuffled` with injected draws, against one
+    process's steps with the same draws (every leaf within RANKS_TOL *
+    max(|x|, 1), the ranks bit-equal), then the selfplay daemon at a global
+    B=`sp_batch`, `visits` visits, 1 segment of `moves` moves into `sp_dir`
+    (whose models/ links run-s5200): every rank's shard and SGFs read back,
+    the names distinct, the total returned by every rank."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from katacoffee_tpu_torch.dataio import checkpoints as ckpt
+    from katacoffee_tpu_torch.dataio.trainingwrite import iter_shards, read_npz_rows, rows_to_batch
+    from katacoffee_tpu_torch.nn.configs import get_model_spec
+    from katacoffee_tpu_torch.nn.features import sample_history_levels
+    from katacoffee_tpu_torch.nn.model import CoffeeNet
+    from katacoffee_tpu_torch.parallel import mesh
+    from katacoffee_tpu_torch.train import train as train_mod
+
+    n_gpu = torch.cuda.device_count()
+    backend, where = ("nccl", "cuda") if n_gpu >= n else ("gloo", "cuda:0")
+    data = [read_npz_rows(p) for p in iter_shards(shuffled)]
+    cols = {k: np.concatenate([d[k] for d in data]) for k in data[0] if k not in ("schema_version", "board_shape")}
+    take = np.arange(train_batch * train_steps) % cols["weight"].shape[0]
+    rows_in = {k: v[take] for k, v in cols.items()}
+    g = torch.Generator().manual_seed(11)
+    syms = [torch.randint(0, 8, (train_batch,), generator=g) for _ in range(train_steps)]
+    levels = [sample_history_levels(train_batch, 0.98, generator=g) for _ in range(train_steps)]
+    t = time.monotonic()
+    ranks = mesh.launch_local(rank_phase, n, rows_in, syms, levels, train_batch, train_steps, sp_dir, sp_batch,
+                              visits, moves, backend=backend, device=where)
+    ranks_s = time.monotonic() - t
+    f32 = dataclasses.replace(get_model_spec("b6c96"), dtype=torch.float32)
+    state, _ = ckpt.load_checkpoint(FLAGSHIP_CKPT, train_mod.init_train_state(CoffeeNet(f32, cfg.win_len).to(dev)))
+    step = train_mod.make_train_step(cfg, train_mod.TrainConfig(), train_batch)
+    for i in range(train_steps):
+        block = {k: v[i * train_batch:(i + 1) * train_batch] for k, v in rows_in.items()}
+        state, m = step(state, rows_to_batch(block, cfg, dev), draws=train_mod.StepDraws(syms[i].to(dev),
+                                                                                          levels[i].to(dev)))
+    ref = ckpt.flatten(ckpt.state_to_tree(state))
+    bit_equal = all(np.array_equal(r["tree"][k], ranks[0]["tree"][k]) for r in ranks[1:] for k in ref)
+    worst = 0.0
+    for k, v in ref.items():
+        v = np.asarray(v, np.float64)
+        worst = max(worst, float(np.abs(ranks[0]["tree"][k] - v).max() / max(float(np.abs(v).max()), 1.0)))
+    model = os.path.basename(MODEL_DIR)
+    got, sgfs = read_daemon_rows(cfg, sp_dir, model, dev)
+    sp_rows, sp_games = got["weight"].shape[0], replay_sgfs(cfg, sgfs, dev)
+    names = [os.path.basename(p) for p in sgfs]
+    shards = sorted(os.listdir(os.path.join(sp_dir, "selfplay", model, "tdata")))
+    named = {name.split("_")[1] for name in names}
+    log(f"{label}: {n} ranks over {backend} on {[r['device'] for r in ranks]} ({n_gpu} GPU(s) visible, "
+        f"{ranks[0]['card']}), {ranks_s:.1f} s with the spawns: {train_steps} float32 b6c96 steps at a global "
+        f"B={train_batch} in {ranks[0]['train_s']:.3f} s against one process: largest leaf difference "
+        f"{worst:.3e} * max(|x|, 1) (tol {RANKS_TOL}), last loss {ranks[0]['metrics'][-1]['loss']:.6f} / "
+        f"{float(m['loss']):.6f}; the ranks {'bit-equal' if bit_equal else 'NOT bit-equal'}; the daemon at a global "
+        f"B={sp_batch}, {visits} visits, {moves} moves: {sp_rows} rows ({[r['selfplay_rows'] for r in ranks]} "
+        f"returned), shards {shards}, {sp_games} SGFs replayed ({len(named)} ranks named) in "
+        f"{ranks[0]['selfplay_s']:.1f} s")
+    if (worst > RANKS_TOL or not bit_equal or [r["world"] for r in ranks] != [n] * n
+            or any(r["selfplay_rows"] != sp_rows for r in ranks) or len(shards) != n
+            or named != {f"rank{r}" for r in range(n)} or len(set(names)) != len(names)):
+        raise AssertionError(f"{label}: the ranks disagree with one process or with each other, or their selfplay "
+                             f"output does not add up")
+    return {"backend": backend, "gpus_visible": n_gpu, "devices": [r["device"] for r in ranks], "seconds": ranks_s,
+            "train_s": ranks[0]["train_s"], "max_leaf_diff": worst, "bit_equal": bit_equal,
+            "selfplay_rows": sp_rows, "selfplay_sgfs": sp_games, "selfplay_s": ranks[0]["selfplay_s"]}
+
+
+def phase_contribute(dev, cfg, root, shuffled, snapshot_every=50, visits=16, batch=64, moves=26, rating_visits=16,
+                     rating_games=8, cmd_visits=8, cmd_batch=16, train_batch=256, train_steps=10, sp_batch=64):
+    """The contribution bus and several GPUs, this slice's main path:
+    (a) a `ContributionServer` in a thread on 127.0.0.1:0 over a base dir
+    under `root` whose models/ links run-s5200, selfplay_config
+    {"maxVisits": `visits`, "numParallelGames": `batch`} (the server's
+    default width, B=64, b6c96 bf16, for_selfplay(); depth cut from 600
+    visits to 16 so every game ends inside one 26-move cycle), and a
+    `ContributeClient` on the card running one `run_cycle(26)` with
+    `PathCopies` entered around it (one descent launch a playout, at most
+    two gathers a search): the wall, rows, rows/s and the seconds spent
+    uploading; the uploaded shard read back through the port's reader with
+    the JAX schema's keys and dtypes, every SGF replayed to its winner;
+    (b) each kernel held to its plain version on (a)'s copies and timed
+    (the gather at (64, 64, 8, 100), the descent on the cycle's deepest
+    copied tree); (c) a rating task: run-s4800 added to the models,
+    rating_game_prob 1.0 and {"maxVisits": 16, "numRatingGames": 8}, one
+    cycle, the SGFs on the server tallied through the port's
+    `summarize_sgfs` to the client's own result; (d) `python -m
+    katacoffee_tpu_torch contribute -max-cycles 1` in a subprocess against a
+    server at {"maxVisits": 8, "numParallelGames": 16}: it exits 0 and its
+    rows are stored ((d) runs beside (c) and (e)); (e) `phase_ranks` with
+    two ranks on phase 7's shuffled rows (`shuffled`), in a thread beside
+    (c)."""
+    import collections
+
+    import torch
+
+    from katacoffee_tpu_torch.command.summarize_sgfs import collect_results
+    from katacoffee_tpu_torch.distributed import ContributeClient, ContributionServer
+    from katacoffee_tpu_torch.distributed import client as client_mod
+    from katacoffee_tpu_torch.ops.gather import gather_rows
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.utils.logger import Logger
+
+    out = {}
+    model_name, champion = os.path.basename(MODEL_DIR), os.path.basename(CHAMPION_DIR)
+
+    def server_dir(name, *models):
+        base = os.path.join(root, name)
+        os.makedirs(os.path.join(base, "models"))
+        for m in models:
+            os.symlink(os.path.abspath(m), os.path.join(base, "models", os.path.basename(m)))
+        return base
+
+    # (a) one selfplay cycle at the server's width
+    base = server_dir("bus", MODEL_DIR)
+    srv = ContributionServer(base, cfg, selfplay_config={"maxVisits": visits, "numParallelGames": batch}).start()
+    searches, uploads = [], []
+    try:
+        client = ContributeClient(srv.url, os.path.join(root, "bus_cache"), logger=Logger(), seed=0, device=dev)
+        request = client._request
+
+        def timed_request(path, data=None):
+            t = time.monotonic()
+            reply = request(path, data)
+            if data is not None:
+                uploads.append(time.monotonic() - t)
+            return reply
+
+        def counted_search(*args, **kwargs):
+            n = gather_rows.launches
+            tree = kept(*args, **kwargs)
+            searches.append(gather_rows.launches - n)
+            return tree
+
+        client._request = timed_request
+        kept = mcts.run_search
+        mcts.run_search = counted_search
+        try:
+            with PathCopies(snapshot_every) as copies:
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                rows = client.run_cycle(moves_per_segment=moves)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t
+        finally:
+            mcts.run_search = kept
+    finally:
+        srv.stop()
+    got, sgfs = read_daemon_rows(cfg, base, model_name, dev)
+    stored, games = got["weight"].shape[0], replay_sgfs(cfg, sgfs, dev)
+    log(f"contribute (a): one cycle, {batch} games at {visits} visits, {moves} moves, b6c96 bf16: {wall:.3f} s with "
+        f"the model's download and load, {rows} rows ({rows / wall:.1f} rows/s), {len(uploads)} uploads in "
+        f"{sum(uploads):.3f} s; the shard read back ({stored} rows, the JAX schema's keys and dtypes), {games} SGFs "
+        f"replayed to their winners; launches: descend_interior {copies.launches['descend_interior']} for "
+        f"{copies.sims} simulations run, gather_rows {copies.launches['gather_rows']} ({max(searches)} at most in "
+        f"each of {len(searches)} searches; shapes {sorted(copies.gathers)})")
+    copies.check_launches("contribute", batch)
+    if stored != rows or games == 0 or not searches or max(searches) > 2:
+        raise AssertionError(f"contribute (a): {stored} rows stored of {rows}, {games} SGFs, {len(searches)} searches "
+                             f"with gathers {searches}")
+    out.update(wall_s=wall, rows=rows, rows_per_s=rows / wall, upload_s=sum(uploads), uploads=len(uploads),
+               games=games, visits=visits, batch=batch, moves=moves, launches=copies.launches, sims=copies.sims,
+               searches=len(searches))
+
+    # (b) the kernels on the cycle's own inputs
+    checked = copies.check("contribute (b)", cfg)
+    out.update(checked, gather_shape=next(iter(checked["gather"])))
+
+    # (d) the command in a subprocess, which runs while (c) and (e) do
+    base_d = server_dir("command", MODEL_DIR)
+    srv_d = ContributionServer(base_d, cfg, selfplay_config={"maxVisits": cmd_visits,
+                                                             "numParallelGames": cmd_batch}).start()
+    t_d = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", "katacoffee_tpu_torch", "contribute", "-server", srv_d.url,
+                             "-max-cycles", "1", "-cache-dir", os.path.join(root, "command_cache")],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (e) two ranks, in a thread beside (c): the ranks are processes of their own
+        with ThreadPoolExecutor(1) as pool:
+            ranks = pool.submit(phase_ranks, dev, cfg, server_dir("ranks", MODEL_DIR), shuffled, 2, visits=visits,
+                                moves=moves, train_batch=train_batch, train_steps=train_steps,
+                                sp_batch=sp_batch, label="contribute (e)")
+            # (c) a rating task
+            base = server_dir("rating", MODEL_DIR, CHAMPION_DIR)
+            srv = ContributionServer(base, cfg, rating_game_prob=1.0, rating_seed=0,
+                                     rating_config={"maxVisits": rating_visits, "numRatingGames": rating_games}).start()
+            played, tasks = [], []
+            kept_match = client_mod.run_match
+            client_mod.run_match = lambda *a, **kw: played.append(kept_match(*a, **kw)) or played[-1]
+            try:
+                client = ContributeClient(srv.url, os.path.join(root, "bus_cache"), logger=Logger(), seed=1,
+                                          device=dev)
+                get_task = client.get_task
+                client.get_task = lambda: tasks.append(get_task()) or tasks[-1]
+                t = time.monotonic()
+                n = client.run_cycle()
+                rating_s = time.monotonic() - t
+            finally:
+                client_mod.run_match = kept_match
+                srv.stop()
+            (task,), (result,) = tasks, played
+            records = collect_results([os.path.join(base, "ratinggames")], device=dev)
+            wins = collections.Counter()
+            for pb, pw, wb, ww, _ in records:
+                wins[pb] += wb
+                wins[pw] += ww
+            draws = sum(r[4] for r in records)
+            log(f"contribute (c): rating task {task['modelBlack']} (black first) vs {task['modelWhite']}, {n} games "
+                f"at {rating_visits} visits in {rating_s:.3f} s beside (e): client {result.wins_a}-{result.wins_b}-"
+                f"{result.draws}, the server's SGFs tally {dict(wins)} and {draws} draws")
+            if (task["taskType"] != "rating" or {task["modelBlack"], task["modelWhite"]} != {model_name, champion}
+                    or n != rating_games or sum(r[2] + r[3] + r[4] for r in records) != n
+                    or dict(wins) != {task["modelBlack"]: result.wins_a, task["modelWhite"]: result.wins_b}
+                    or draws != result.draws):
+                raise AssertionError(f"contribute (c): task {task}, {n} games, records {records}, result {result}")
+            out["rating"] = {"games": n, "seconds": rating_s, "wins_black_model": result.wins_a,
+                             "wins_white_model": result.wins_b, "draws": result.draws}
+            out["ranks"] = ranks.result()
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        srv_d.stop()
+        raise
+    try:
+        stdout, stderr = proc.communicate(timeout=max(300 - (time.monotonic() - t_d), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        srv_d.stop()
+    cmd_s = time.monotonic() - t_d
+    if proc.returncode != 0:
+        raise AssertionError(f"contribute (d): exit {proc.returncode}\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    cmd_rows = read_daemon_rows(cfg, base_d, model_name, dev)[0]["weight"].shape[0]
+    log(f"contribute (d): `contribute -max-cycles 1` in a subprocess, run beside (c) and (e), exited 0 after "
+        f"{cmd_s:.1f} s; {cmd_rows} rows stored ({cmd_batch} games at {cmd_visits} visits): "
+        f"{stdout.strip().splitlines()[-1]}")
+    out["command"] = {"seconds": cmd_s, "rows": cmd_rows}
+    return out
+
+
 def phase_profile(dev, label, search, sims=20):
     """Where a search's time goes: the wall time of `search()` (`sims`
     playouts, ending in a device synchronization), then the same under
@@ -3116,18 +3480,18 @@ def log_kernel_rows(gather_entry: dict, descend_entry: dict) -> None:
     def us(x):
         return "n/a" if x is None else f"{x * 1e3:.2f}"
 
-    rows = [(f"book {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
+    rows = [(f"contribute {gather_entry['shape']}", gather_entry), *gather_entry["other_shapes"].items()]
     for label, r in rows:
         log(f"  gather_rows {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
             f"torch.gather {us(r['library_ms'])}, plain {us(r['plain_ms'])}")
-    rows = [(f"book B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
+    rows = [(f"contribute B={descend_entry['shape'][0]}", descend_entry), *descend_entry["other_trees"].items()]
     for label, r in rows:
         log(f"  descend_interior {label}: {us(r['ms'])} us, bound {us(r['bound_ms'])}, floor {us(r['floor_ms'])}, "
             f"deepest game {r['max_levels']} levels, {r['us_per_level']:.3f} us a level")
 
 
 def main() -> int:
-    faulthandler.dump_traceback_later(1100, exit=True)
+    faulthandler.dump_traceback_later(1160, exit=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -3184,40 +3548,48 @@ def main() -> int:
         gate = phase_gatekeeper(dev, cfg, work)
         gate["card_vs_cpu"] = phase_gate_card_vs_cpu(dev, cfg)
         gate["loop"] = phase_loop(dev, cfg, work)
+
+        log("phase 9: the GTP engine, its kernels' inputs, card against CPU")
+        gtp = phase_gtp(dev)
+
+        log("phase 10: the analysis engine, its kernels' inputs, card against CPU, the analysis, evalsgf and "
+            "genconfig commands")
+        analysis = phase_analysis(dev)
+
+        log("phase 11: the opening book, its kernels' inputs, card against CPU, the misc commands, perfcount and "
+            "the reference net")
+        book = phase_book(dev)
+
+        log("phase 12: the contribution bus (this slice's main path), its kernels' inputs, a rating task, the "
+            "contribute command, two ranks")
+        t = time.monotonic()
+        contribute = phase_contribute(dev, cfg, work, os.path.join(work, "trainer", "shuffleddata"))
+        contribute["phase_s"] = time.monotonic() - t
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    log("phase 9: the GTP engine, its kernels' inputs, card against CPU")
-    gtp = phase_gtp(dev)
-
-    log("phase 10: the analysis engine, its kernels' inputs, card against CPU, the analysis, evalsgf and genconfig "
-        "commands")
-    analysis = phase_analysis(dev)
-
-    log("phase 11: the opening book (this slice's main path), its kernels' inputs, card against CPU, the misc "
-        "commands, perfcount and the reference net")
-    book = phase_book(dev)
-
-    log("phase 12: profiles")
+    log("phase 13: profiles")
     profiles = profile_searches(dev, cfg, selfplay.pop("tree"))
     ab = profiles.pop("randomization_ab")
     log("per playout: cudaLaunchKernel " + ", ".join(
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
-    # the kernels line reports the main path (phase 11 (a), the book's B=64
-    # rounds): its launches, and each kernel's check and times on the inputs
+    # the kernels line reports the main path (phase 12 (a), the contribute
+    # cycle): its launches, and each kernel's check and times on the inputs
     # that path gave it; the earlier paths' launches and times beside them
     # (the trainer's path, phase 7, launches neither)
-    paths = (command, gate, gtp, analysis, book)
-    shape = book["gather_shape"]
-    t = gather_row(book["gather"][shape], floor)
+    paths = (command, gate, gtp, analysis, book, contribute)
+    shape = contribute["gather_shape"]
+    t = gather_row(contribute["gather"][shape], floor)
     gather_entry = {
         "name": "gather_rows",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/gather_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
-        "launches": book["launches"]["gather_rows"],
+        "launches": contribute["launches"]["gather_rows"],
+        "searches_contribute_path": contribute["searches"],
+        "launches_book_path": book["launches"]["gather_rows"],
         "searches_book_path": book["searches"],
         "launches_analysis_path": analysis["launches"]["gather_rows"],
         "launches_gtp_path": gtp["launches"]["gather_rows"],
@@ -3237,7 +3609,8 @@ def main() -> int:
         "launches_default_path": search["launches"]["gather_rows"],
         "launches_per_search_default_path": search["per_search"]["gather_rows"],
         "other_shapes": {
-            **{f"book {list(s)}": gather_row(v, floor) for s, v in book["gather"].items() if s != shape},
+            **{f"contribute {list(s)}": gather_row(v, floor) for s, v in contribute["gather"].items() if s != shape},
+            **{f"book {list(s)}": gather_row(v, floor) for s, v in book["gather"].items()},
             **{f"analysis {list(s)}": gather_row(v, floor) for s, v in analysis["gather"].items()},
             **{f"gtp {list(s)}": gather_row(v, floor) for s, v in gtp["gather"].items()},
             **{f"gatekeeper {list(s)}": gather_row(v, floor) for s, v in gate["gather"].items()},
@@ -3245,16 +3618,18 @@ def main() -> int:
             **{f"random inputs {list(s)}": gather_row(v, floor) for s, v in kern["timings"].items()},
         },
     }
-    # the deepest tree of the book's B=64 rounds
-    width = max(book["round_widths"], key=lambda b: book["descent"][b]["max_levels"])
-    timed = descent_row(book["descent"][width], floor)
+    # the deepest copied tree of the contribute cycle (B=64)
+    width = contribute["batch"]
+    timed = descent_row(contribute["descent"][width], floor)
     descend_entry = {
         "name": "descend_interior",
         "route": "cuda",
         "source": "katacoffee_tpu_torch/ops/descend_kernel.cu",
         "replaces": "katacoffee_tpu/ops/gather.py:39",
         "also_replaces": "katacoffee_tpu/search/mcts.py:1267",
-        "launches": book["launches"]["descend_interior"],
+        "launches": contribute["launches"]["descend_interior"],
+        "simulations_run_contribute": contribute["sims"],
+        "launches_book_path": book["launches"]["descend_interior"],
         "simulations_run_book": book["sims"],
         "launches_analysis_path": analysis["launches"]["descend_interior"],
         "simulations_run_analysis": analysis["sims"],
@@ -3281,7 +3656,8 @@ def main() -> int:
         "shape": timed["shape"],
         "timed_levels": timed["timed_levels"],
         "other_trees": {
-            **{f"book B={b}": descent_row(v, floor) for b, v in book["descent"].items() if b != width},
+            **{f"contribute B={b}": descent_row(v, floor) for b, v in contribute["descent"].items() if b != width},
+            **{f"book B={b}": descent_row(v, floor) for b, v in book["descent"].items()},
             **{f"analysis B={b}": descent_row(v, floor) for b, v in analysis["descent"].items()},
             **{f"gtp B={b}": descent_row(v, floor) for b, v in gtp["descent"].items()},
             **{f"gatekeeper B={b}": descent_row(v, floor) for b, v in gate["descent"].items()},
@@ -3310,7 +3686,11 @@ def main() -> int:
                          f"({s['root_vps']:.1f} root visits/s)" for s in analysis["searches"])
     rounds = ", ".join(f"{r['lanes']} lanes at B={r['batch']} {r['wall_s']:.3f} s ({r['root_vps']:.1f} root visits/s, "
                        f"{r['outside_s']:.4f} s outside run_search)" for r in book["rounds"])
-    log(f"phase 13: done; book rounds at {book['visits']} visits: {rounds} ({book['profile']['launches_per_sim']:.0f} launches, "
+    bus, ranks = contribute, contribute["ranks"]
+    log(f"phase 14: done; contribute cycle {bus['wall_s']:.3f} s, {bus['rows']} rows ({bus['rows_per_s']:.1f} rows/s, "
+        f"{bus['upload_s']:.3f} s uploading), rating task {bus['rating']['seconds']:.3f} s, the command "
+        f"{bus['command']['seconds']:.1f} s, two ranks over {ranks['backend']} {ranks['seconds']:.1f} s, phase 12 "
+        f"{bus['phase_s']:.1f} s; book rounds at {book['visits']} visits: {rounds} ({book['profile']['launches_per_sim']:.0f} launches, "
         f"{book['profile']['syncs_per_sim']:.2f} host reads and {book['profile']['stream_syncs_per_sim']:.2f} stream "
         f"syncs a playout at B=64); analysis searches {searches} ({analysis['profile']['launches_per_sim']:.0f} launches, "
         f"{analysis['profile']['syncs_per_sim']:.2f} host reads and {analysis['profile']['stream_syncs_per_sim']:.2f} "
@@ -3340,6 +3720,8 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"book": {k: v for k, v in book.items() if k not in ("gather", "descent")}}, default=str),
           flush=True)
+    print(json.dumps({"contribute": {k: v for k, v in contribute.items() if k not in ("gather", "descent")}},
+                     default=str), flush=True)
     print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)
     print(json.dumps({
         "ok": True,
@@ -3350,4 +3732,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # the work and its output end in main; the interpreter's teardown after it
+    # (CUDA, the profiler, spawned process groups) does nothing this script
+    # needs and has hung once after the result line, so it is skipped
+    try:
+        code = main()
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    print(f"chip_smoke: exit {code} after {time.monotonic() - T0:.1f}s", file=sys.stderr, flush=True)
+    sys.stdout.flush()
+    os._exit(code)

@@ -4,9 +4,9 @@
 `match`, `loop`, `summarize_sgfs`, `benchmark`, `gtp`, `analysis`,
 `evalsgf`, `genconfig`, `genbook`, `writebook`, `checkbook`, `booktoposes`,
 `demoplay`, `samplesgfs`, `dataminesgfs`, `viewstartposes`,
-`trystartposes`, `sampleinitializations`, `runtests`, `version` and
-`printclockinfo`; any other (`serve`, `contribute`) exits non-zero and says
-so."""
+`trystartposes`, `sampleinitializations`, `runtests`, `serve`,
+`contribute`, `version` and `printclockinfo`; any other exits non-zero and
+says so."""
 
 from __future__ import annotations
 
@@ -87,11 +87,21 @@ Usage: python -m katacoffee_tpu_torch <subcommand> [args]
                policy-sampled openings as the selfplay actor makes them
   runtests [PYTEST_ARGS...]
                pytest tests/ -q
+  serve -base-dir DIR [-host H] [-port P] [-selfplay-visits V]
+        [-parallel-games B] [-rating-game-prob P] [-rating-visits V]
+        [-rating-games G] [-certfile F -keyfile K]
+               the contribution bus's training server: hands out selfplay
+               and rating tasks and models, stores uploads under DIR
+  contribute -server URL [-cache-dir DIR] [-max-cycles N] [-seed S]
+             [-cafile F]
+               volunteer selfplay on the GPU against a training server
   version      print the version
   printclockinfo
                print the monotonic clock's resolution
 
-`serve` and `contribute` of `python -m katacoffee_tpu` are not ported yet.
+selfplay, train and loop use every visible GPU, one process each, where
+the batch divides over them; under torchrun --nproc-per-node N, selfplay
+and train run one rank a process.
 """
 
 
@@ -222,6 +232,11 @@ def main(argv: list[str] | None = None) -> int:
         from katacoffee_tpu_torch.command import misc
 
         getattr(misc, f"main_{cmd}")(args)
+        return 0
+    if cmd in ("serve", "contribute"):
+        from katacoffee_tpu_torch.distributed import client
+
+        (client.main_serve if cmd == "serve" else client.main)(args)
         return 0
     if cmd == "runtests":
         import subprocess

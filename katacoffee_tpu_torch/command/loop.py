@@ -1,5 +1,7 @@
-"""Synchronous training loop on one GPU: selfplay -> shuffle -> train ->
-export -> gate, cycle after cycle.
+"""Synchronous training loop: selfplay -> shuffle -> train -> export ->
+gate, cycle after cycle. Selfplay and training use every visible GPU, one
+rank each, where their batch divides over them (as the JAX loop shards
+over every chip through `use_mesh`); the gate runs on one.
 
 The port of `katacoffee_tpu/command/loop.py` (the single-process form of the
 reference's `python/selfplay/synchronous_loop.sh`): the cycle runs as

@@ -10,20 +10,23 @@ so its shuffler and trainer read them.
 One process drives B games in lockstep on one GPU, `moves_per_segment`
 plies per `run_selfplay_segment`; each segment's trajectory stays on the
 device until its flush window (`segments_per_flush` segments) is finalized
-and written, once per window.
+and written, once per window. Over several GPUs each rank of a process group
+drives its B/world games on its own GPU (`run_selfplay_daemon`).
 
 Randomness: the daemon draws from one `torch.Generator` seeded by
-`SelfplayConfig.seed` on its device (JAX derives keys from
-`fold_in(PRNGKey(seed), process_index)`, a stream torch cannot reproduce, so
-the two packages play different games for one seed). The numpy generator of
-the fork candidates is the JAX package's, `default_rng((seed ^ 0x5EEDF04C) +
-0)`, and is drawn from in the same order.
+`SelfplayConfig.seed` on its device, by (seed, rank) over several ranks (JAX
+derives keys from `fold_in(PRNGKey(seed), process_index)` and folds in the
+shard index, a stream torch cannot reproduce, so the two packages play
+different games for one seed). The numpy generator of the fork candidates
+is the JAX package's, `default_rng((seed ^ 0x5EEDF04C) + rank)`, and is
+drawn from in the same order.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import signal
 import threading
@@ -36,8 +39,9 @@ import torch
 from katacoffee_tpu_torch.dataio.checkpoints import find_latest_model, load_exported_model
 from katacoffee_tpu_torch.dataio.sgf import write_sgf
 from katacoffee_tpu_torch.dataio.trainingwrite import TrainingDataWriter
-from katacoffee_tpu_torch.device import refuse_multi_host, refuse_several_gpus, resolve_device
+from katacoffee_tpu_torch.device import resolve_device
 from katacoffee_tpu_torch.game.board import GameConfig, GameState, init_state
+from katacoffee_tpu_torch.parallel import mesh
 from katacoffee_tpu_torch.search.mcts import make_nn_eval_fn, uniform_eval_fn
 from katacoffee_tpu_torch.search.params import SearchParams
 from katacoffee_tpu_torch.selfplay.actor import (
@@ -124,8 +128,8 @@ class SelfplayConfig:
     max_segments: int | None = None  # None = run forever
     max_rows: int | None = None
     seed: int = 0
-    # several GPUs are not ported (a single GPU ignores it, as JAX does with
-    # one device)
+    # the game batch over every visible GPU, one rank each, when it divides
+    # over them (a single GPU ignores it, as JAX does with one device)
     use_mesh: bool = True
     # start-position SGFs (startPosesFromSgfDir / startPosesProb)
     startposes_dir: str | None = None
@@ -182,6 +186,7 @@ def flush_window(
     generator: torch.Generator | None = None,
     fork_draws: ForkChoiceDraws | None = None,
     walls: dict | None = None,
+    rank: int | None = None,
 ) -> FlushResult:
     """One flush window of the daemon, in the JAX package's order
     (selfplay.py:333-396): the segments' trajectories concatenated along
@@ -190,8 +195,10 @@ def flush_window(
     window (`extract_fork_candidates` on `fork_rng`), padded to the pool's
     capacity, the value-net choice (`choose_fork_moves` with `eval_fn`, its
     draws from `generator` or `fork_draws`) and `refill_pool`; then, with an
-    `sgf_dir`, one SGF per finished episode, `seg{seg:06d}_{i:04d}.sgf`.
-    `walls` collects the seconds of each part."""
+    `sgf_dir`, one SGF per finished episode, `seg{seg:06d}_{i:04d}.sgf`
+    (`seg{seg:06d}_rank{rank}_{i:04d}.sgf` with a `rank`: the ranks of a
+    process group share the directory). `walls` collects the seconds of
+    each part."""
     dev = resolve_device(device)
     t0 = time.monotonic()
     merged = concat_trajectories(trajs)
@@ -241,9 +248,10 @@ def flush_window(
         t0 = time.monotonic()
         episodes = extract_episodes(cfg, merged)
         games = len(episodes)
+        tag = "" if rank is None else f"rank{rank}_"
         for i, (moves, winner) in enumerate(episodes):
             text = write_sgf(cfg.x_size, cfg.y_size, cfg.win_len, moves, model_name, model_name, winner=winner)
-            with open(os.path.join(sgf_dir, f"seg{seg:06d}_{i:04d}.sgf"), "w") as f:
+            with open(os.path.join(sgf_dir, f"seg{seg:06d}_{tag}{i:04d}.sgf"), "w") as f:
                 f.write(text + "\n")
         _tick(walls, "sgfs", t0, dev)
     return FlushResult(rows, games, fork_pool)
@@ -274,12 +282,36 @@ def run_selfplay_daemon(
     the loop after the current segment and flush (selfplay.cpp:22-31). The
     seconds of each part go to `walls` by name (segment, side, poll, and
     the flush's finalize, write, forks and sgfs), with a device
-    synchronization at the end of each; without `walls` nothing is timed."""
+    synchronization at the end of each; without `walls` nothing is timed.
+
+    Several GPUs (JAX :200-240, :301-319): started outside a launcher where
+    the JAX package shards the game batch (use_mesh, several visible GPUs,
+    the batch divisible by their number), the daemon runs itself on one
+    rank a GPU through `launch_local` (rank 0's walls come back). In a
+    process group each rank plays batch_size/world games on its own GPU,
+    uncoupled, as each shard of JAX's `shard_map` does, with the side and
+    fork pools' capacities rounded as JAX rounds them for its mesh, then
+    split over the ranks. Rank 0 polls the models and broadcasts what it
+    found, so every rank switches at the same segment; one all-reduce a
+    segment sums the rows (and any rank's stop request), so max_rows and
+    max_segments hold for the whole run, and every rank returns the total."""
     dev = resolve_device(device)
-    refuse_several_gpus("selfplay", dev, spc.use_mesh, spc.batch_size)
     logger = logger or Logger(log_to_stdout=True)
+    n = mesh.local_world_size(dev, spc.use_mesh, spc.batch_size)
+    if n > 1:
+        logger.write(f"selfplay: the game batch over {n} GPUs, one rank each")
+        rows, rank_walls = mesh.launch_local(_daemon_rank, n, base_dir, cfg, sp, spc, logger, install_signal_handlers,
+                                             walls is not None)[0]
+        for k, v in (rank_walls or {}).items():
+            walls.setdefault(k, []).extend(v)
+        return rows
+    rank, world = mesh.world()
+    dev = mesh.rank_device(dev)
+    if spc.batch_size % world:
+        raise ValueError(f"numParallelGames {spc.batch_size} does not divide over {world} ranks")
+    batch = spc.batch_size // world
     models_dir = os.path.join(base_dir, "models")
-    generator = torch.Generator(device=dev).manual_seed(spc.seed)
+    generator = torch.Generator(device=dev).manual_seed(mesh.rank_seed(spc.seed, rank, world))
 
     stop_requested = [False]
     kept_handlers = {}
@@ -305,7 +337,9 @@ def run_selfplay_daemon(
                                                turn_weight_lambda=spc.startposes_turn_weight_lambda)
     hintpos_pool, hintposes_prob = load_pool(spc.hintposes_dir, spc.hintposes_prob, "hint", with_hints=True)
 
-    cap_round = 8
+    # over several ranks the pools are split, so their capacities round to a
+    # multiple of 8 and of the world size (JAX's cap_round for its mesh)
+    cap_round = 8 * world // math.gcd(8, world)
     settings = SelfplaySettings(
         num_sims=spc.num_sims,
         node_budget_frac=spc.node_budget_frac,
@@ -322,17 +356,28 @@ def run_selfplay_daemon(
         record_tree_threshold=spc.record_tree_threshold,
         record_tree_target_weight=spc.record_tree_target_weight,
     )
-    states = init_state(cfg, spc.batch_size, dev)
-    ep = torch.zeros((spc.batch_size,), dtype=torch.int64, device=dev)
+    if world > 1:
+        fork_cap = -(-settings.fork_pool_capacity // cap_round) * cap_round
+        settings = dataclasses.replace(settings, side_position_capacity=settings.side_position_capacity // world,
+                                       fork_pool_capacity=fork_cap // world)
+    states = init_state(cfg, batch, dev)
+    ep = torch.zeros((batch,), dtype=torch.int64, device=dev)
     use_game_forks = settings.early_fork_game_prob > 0.0 or settings.fork_game_prob > 0.0
     fork_pool = init_fork_pool(cfg, settings.fork_pool_capacity, dev) if use_game_forks else None
-    fork_rng = np.random.default_rng((spc.seed ^ 0x5EEDF04C) + 0)
+    fork_rng = np.random.default_rng((spc.seed ^ 0x5EEDF04C) + rank)
+    who = f"selfplay rank {rank}" if world > 1 else "selfplay"
+
+    def over_ranks(*counts: int) -> list[int]:
+        # the counts summed over the ranks, one all-reduce
+        if world == 1:
+            return list(counts)
+        return mesh.all_reduce_sum(torch.tensor(counts, dtype=torch.int64, device=dev)).tolist()
 
     current_model_dir = None
     eval_fn = uniform_eval_fn(cfg)
     model_name = "random"
     writer = sgf_dir = side_state = None
-    total_rows = games_done = seg = 0
+    rows = total_rows = games_done = seg = 0
     pending: list[Trajectory] = []
     t_start = time.monotonic()
 
@@ -347,14 +392,14 @@ def run_selfplay_daemon(
             side_state = init_side_state(cfg, settings.side_position_capacity, dev)
 
     def flush_pending():
-        nonlocal pending, total_rows, games_done, fork_pool
+        nonlocal pending, rows, games_done, fork_pool
         if not pending:
             return
         res = flush_window(cfg, settings, pending, writer, eval_fn=eval_fn, fork_pool=fork_pool, fork_rng=fork_rng,
                            sgf_dir=sgf_dir if spc.write_sgfs else None, model_name=model_name, seg=seg, device=dev,
-                           generator=generator, walls=walls)
+                           generator=generator, walls=walls, rank=rank if world > 1 else None)
         pending = []
-        total_rows += res.rows
+        rows += res.rows
         games_done += res.games
         fork_pool = res.fork_pool
 
@@ -362,7 +407,7 @@ def run_selfplay_daemon(
         while True:
             if seg % spc.poll_every_segments == 0:
                 t0 = time.monotonic()
-                latest = find_latest_model(models_dir)
+                latest = mesh.broadcast_object_from_zero(find_latest_model(models_dir) if rank == 0 else None)
                 _tick(walls, "poll", t0, dev)
                 if latest != current_model_dir:
                     if writer is not None:
@@ -385,7 +430,7 @@ def run_selfplay_daemon(
                         model_name = meta["name"]
                     build_for_model()
                     _tick(walls, "poll", t0, dev)
-                    logger.write(f"selfplay: using model {model_name}")
+                    logger.write(f"{who}: using model {model_name}")
             if writer is None:
                 build_for_model()
 
@@ -403,20 +448,23 @@ def run_selfplay_daemon(
                 t0 = time.monotonic()
                 side_state, side_batch = run_side_segment(cfg, sp, settings, eval_fn, side_state, traj, device=dev,
                                                           generator=generator)
-                total_rows += writer.add_batch(side_batch)
+                rows += writer.add_batch(side_batch)
                 _tick(walls, "side", t0, dev)
             pending.append(traj)
             seg += 1
 
-            done_now = (spc.max_segments is not None and seg >= spc.max_segments) or stop_requested[0]
+            # a stop request ends every rank at the same segment: over
+            # several ranks it travels with the row count
+            done_now = (spc.max_segments is not None and seg >= spc.max_segments) or (world == 1 and stop_requested[0])
             if len(pending) >= spc.segments_per_flush or done_now:
                 flush_pending()
                 dt = time.monotonic() - t_start
                 parts = "" if walls is None else "; seconds so far: " + ", ".join(
                     f"{k} {sum(v):.3f}" for k, v in walls.items())
-                logger.write(f"selfplay: seg {seg} rows {total_rows} games {games_done} "
-                             f"({total_rows / max(dt, 1e-9):.1f} rows/s{parts})")
-            if done_now:
+                logger.write(f"{who}: seg {seg} rows {rows} games {games_done} "
+                             f"({rows / max(dt, 1e-9):.1f} rows/s{parts})")
+            total_rows, stops = over_ranks(rows, int(stop_requested[0]))
+            if done_now or stops:
                 break
             if spc.max_rows is not None and total_rows >= spc.max_rows:
                 flush_pending()
@@ -424,10 +472,18 @@ def run_selfplay_daemon(
 
         flush_pending()
         writer.flush()
+        total_rows = over_ranks(rows)[0]
     finally:
         for sig, handler in kept_handlers.items():
             signal.signal(sig, handler)
     return total_rows
+
+
+def _daemon_rank(base_dir, cfg, sp, spc, logger, install_signal_handlers, timed):
+    """One rank of `launch_local`'s daemon: (rows of the whole run, this
+    rank's walls or None)."""
+    walls = {} if timed else None
+    return run_selfplay_daemon(base_dir, cfg, sp, spc, logger, install_signal_handlers, walls=walls), walls
 
 
 def run_mixed_selfplay(
@@ -464,8 +520,9 @@ def run_mixed_selfplay(
 def main(argv, *, device: str | torch.device | None = None, walls: dict | None = None) -> None:
     """Entry for `python -m katacoffee_tpu_torch selfplay` (JAX
     selfplay.py:509): the same flags and config keys. Runs on `device`
-    (default `cuda`); `walls` collects the daemon's seconds by part."""
-    refuse_multi_host("selfplay")
+    (default `cuda`); `walls` collects the daemon's seconds by part. Under
+    torchrun (`--nproc-per-node N`) each process joins the group as one
+    rank of the daemon."""
     dev = resolve_device(device)
     ap = argparse.ArgumentParser(prog="katacoffee_tpu_torch selfplay")
     ap.add_argument("-output-dir", required=True)
@@ -502,6 +559,7 @@ def main(argv, *, device: str | torch.device | None = None, walls: dict | None =
     logger = Logger(log_to_stdout=True)
     os.makedirs(args.output_dir, exist_ok=True)
     logger.add_file(os.path.join(args.output_dir, "selfplay.log"))
+    mesh.init_distributed(device=dev)
     try:
         # bSizes / bSizeRelProbs (play.cpp:93-142) and bWinLens switch to the
         # mixed-size daemon
@@ -525,4 +583,5 @@ def main(argv, *, device: str | torch.device | None = None, walls: dict | None =
         run_selfplay_daemon(args.output_dir, cfg, sp, spc, logger, install_signal_handlers=True, device=dev,
                             walls=walls)
     finally:
+        mesh.destroy_distributed()
         logger.close()

@@ -24,12 +24,19 @@ import torch
 
 from katacoffee_tpu_torch.dataio.checkpoints import export_model, load_checkpoint, save_checkpoint
 from katacoffee_tpu_torch.dataio.trainingwrite import _ROW_KEYS, iter_shards, read_npz_rows, rows_to_batch
-from katacoffee_tpu_torch.device import refuse_multi_host, refuse_several_gpus, resolve_device
+from katacoffee_tpu_torch.device import resolve_device
 from katacoffee_tpu_torch.game.board import GameConfig
 from katacoffee_tpu_torch.nn.configs import get_model_spec
 from katacoffee_tpu_torch.nn.model import CoffeeNet
+from katacoffee_tpu_torch.parallel import mesh
 from katacoffee_tpu_torch.train.losses import compute_losses
-from katacoffee_tpu_torch.train.train import TrainConfig, current_lr, init_train_state, make_train_step
+from katacoffee_tpu_torch.train.train import (
+    TrainConfig,
+    current_lr,
+    init_train_state,
+    make_sharded_train_step,
+    make_train_step,
+)
 from katacoffee_tpu_torch.utils.config import ConfigParser
 from katacoffee_tpu_torch.utils.logger import Logger
 
@@ -43,18 +50,22 @@ class TrainerConfig:
     max_steps: int | None = None
     max_epochs_per_data: int = 8  # the reference loop's <= 8 passes a row
     seed: int = 0
-    # the JAX package shards the batch over every visible device; the port
-    # raises there (ROADMAP Queue 1 item 8)
+    # data-parallel over every visible GPU, one rank each, when the batch
+    # divides over them (the torch-DDP/NCCL role)
     use_mesh: bool = True
 
 
 def _batch_iterator(shuffled_dir: str, batch_size: int, rng: np.random.Generator, cfg: GameConfig,
-                    device: torch.device):
+                    device: torch.device, stride: int = 1, offset: int = 0):
     """Yield (epoch, TrainingBatch on `device`) of fixed-size batches from
     the shuffled shards, looping, with JAX command/train.py:52's draws:
     `rng.permutation` of the shards each epoch, then of each shard's rows.
-    Yields (None, None) while there is no shard."""
+    Yields (None, None) while there is no shard. Over several ranks
+    (`stride` ranks, this one `offset`) every rank runs the same seeded
+    iterator and takes every stride-th batch, disjoint rows a rank (the
+    role of DistributedSampler in the reference's DDP loop)."""
     epoch = 0
+    bi = 0
     while True:
         shards = list(iter_shards(shuffled_dir))
         if not shards:
@@ -66,7 +77,10 @@ def _batch_iterator(shuffled_dir: str, batch_size: int, rng: np.random.Generator
             perm = rng.permutation(n)
             rows = {k: data[k][perm] for k in _ROW_KEYS}
             for start in range(0, n - batch_size + 1, batch_size):
-                yield epoch, rows_to_batch({k: v[start: start + batch_size] for k, v in rows.items()}, cfg, device)
+                if bi % stride == offset:
+                    yield epoch, rows_to_batch({k: v[start: start + batch_size] for k, v in rows.items()}, cfg,
+                                               device)
+                bi += 1
         epoch += 1
 
 
@@ -99,7 +113,6 @@ def run_training_mixed(
     the line head is sized for the largest win_len. Shares the checkpoint
     format with `run_training`. Returns the steps done."""
     dev = resolve_device(device)
-    refuse_several_gpus("train", dev, trc.use_mesh, trc.batch_size)
     logger = logger or Logger(log_to_stdout=True)
     shuffled_base = os.path.join(base_dir, "shuffleddata")
     train_dir = os.path.join(base_dir, "train", run_name)
@@ -173,10 +186,28 @@ def run_training(
     """Train until max_steps (or until every row was seen
     max_epochs_per_data times) on `device` (default `cuda`), resuming from
     the run's checkpoint if there is one (JAX command/train.py:193).
-    Returns the steps done in this call."""
+    Returns the steps done in this call.
+
+    Data-parallel (JAX :224-300): started outside a launcher where the JAX
+    package shards the batch (use_mesh, several visible GPUs, the batch
+    divisible by their number), it runs itself on one rank a GPU through
+    `launch_local`. In a process group (torchrun, or those ranks) every
+    rank reads the resume, takes rank 0's state, and trains on
+    batch_size/world rows of its own, every world-th batch of the seeded
+    iterator, with `make_sharded_train_step`; the ranks agree each step
+    whether to step, wait for data or stop (one small all-reduce); rank 0
+    alone writes metrics, checkpoints, validation and exports."""
     dev = resolve_device(device)
-    refuse_several_gpus("train", dev, trc.use_mesh, trc.batch_size)
     logger = logger or Logger(log_to_stdout=True)
+    n = mesh.local_world_size(dev, trc.use_mesh, trc.batch_size)
+    if n > 1:
+        logger.write(f"train: data-parallel over {n} GPUs, one rank each")
+        return mesh.launch_local(run_training, n, base_dir, cfg, tc, trc, logger, export_to, run_name, str(dev))[0]
+    rank, world = mesh.world()
+    dev = mesh.rank_device(dev)
+    if trc.batch_size % world:
+        raise ValueError(f"batchSize {trc.batch_size} does not divide over {world} ranks")
+    is_writer = rank == 0
     shuffled_dir = os.path.join(base_dir, "shuffleddata")
     train_dir = os.path.join(base_dir, "train", run_name)
     os.makedirs(train_dir, exist_ok=True)
@@ -185,26 +216,39 @@ def run_training(
     ckpt_path = os.path.join(train_dir, "checkpoint.ckpt")
 
     state, start_step = _new_state(trc, cfg.win_len, dev, ckpt_path, logger, "train")
-    step_fn = make_train_step(cfg, tc, trc.batch_size)
+    if world > 1:
+        with torch.no_grad():
+            mesh.broadcast_from_zero([*state.model.parameters(), *state.trace.values(), *state.ema.values()])
+        step_fn = make_sharded_train_step(cfg, tc, trc.batch_size, world)
+        logger.write(f"train: rank {rank} of {world} on {dev}, {trc.batch_size // world} rows a step")
+    else:
+        step_fn = make_train_step(cfg, tc, trc.batch_size)
     rng = np.random.default_rng(trc.seed + start_step)
-    generator = torch.Generator(device=dev).manual_seed(trc.seed + 1)
-    batches = _batch_iterator(shuffled_dir, trc.batch_size, rng, cfg, dev)
+    generator = torch.Generator(device=dev).manual_seed(mesh.rank_seed(trc.seed + 1, rank, world))
+    batches = _batch_iterator(shuffled_dir, trc.batch_size // world, rng, cfg, dev, stride=world, offset=rank)
 
     steps = 0
     t0 = time.monotonic()
-    with open(os.path.join(train_dir, "metrics_train.json"), "a") as mfile:
+    mfile = open(os.path.join(train_dir, "metrics_train.json"), "a") if is_writer else None
+    try:
         while trc.max_steps is None or steps < trc.max_steps:
             epoch, batch = next(batches)
-            if batch is None:
+            wait = batch is None
+            stop = not wait and epoch >= trc.max_epochs_per_data
+            if world > 1:
+                wait, stop = (mesh.all_reduce_sum(torch.tensor([wait, stop], dtype=torch.int32, device=dev))
+                              > 0).tolist()
+            if stop:
+                break
+            if wait:
                 logger.write("train: no shuffled data yet, waiting")
                 time.sleep(5)
                 continue
-            if epoch >= trc.max_epochs_per_data:
-                break
             state, metrics = step_fn(state, batch, generator)
             steps += 1
             gstep = start_step + steps
-
+            if not is_writer:
+                continue
             if steps % 50 == 0 or steps == 1:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(step=gstep, epoch=epoch, time=time.time(), p_lr=current_lr(tc, trc.batch_size, gstep))
@@ -218,10 +262,14 @@ def run_training(
                 _val_metrics(cfg, state, val_dir, metrics_val_path, gstep, logger)
             if steps % trc.steps_per_export == 0:
                 _export(base_dir, export_to, run_name, gstep, state, trc, cfg, logger)
+    finally:
+        if mfile is not None:
+            mfile.close()
 
-    save_checkpoint(ckpt_path, state, extra={"train_step": start_step + steps})
-    _val_metrics(cfg, state, val_dir, metrics_val_path, start_step + steps, logger)
-    _export(base_dir, export_to, run_name, start_step + steps, state, trc, cfg, logger)
+    if is_writer:
+        save_checkpoint(ckpt_path, state, extra={"train_step": start_step + steps})
+        _val_metrics(cfg, state, val_dir, metrics_val_path, start_step + steps, logger)
+        _export(base_dir, export_to, run_name, start_step + steps, state, trc, cfg, logger)
     return steps
 
 
@@ -280,8 +328,8 @@ def _export(base_dir, export_to, run_name, gstep, state, trc, cfg, logger):
 def main(argv, *, device: str | torch.device | None = None) -> None:
     """Entry for `python -m katacoffee_tpu_torch train` (JAX
     command/train.py:353): the same flags and config keys, on `device`
-    (default `cuda`)."""
-    refuse_multi_host("train")
+    (default `cuda`). Under torchrun (`--nproc-per-node N`) each process
+    joins the group as one rank of the data-parallel trainer."""
     dev = resolve_device(device)
     ap = argparse.ArgumentParser(prog="katacoffee_tpu_torch train")
     ap.add_argument("-base-dir", required=True)
@@ -308,4 +356,8 @@ def main(argv, *, device: str | torch.device | None = None) -> None:
     )
     logger = Logger(log_to_stdout=True)
     c.warn_unused(logger)
-    run_training(args.base_dir, cfg, tc, trc, logger, device=dev)
+    mesh.init_distributed(device=dev)
+    try:
+        run_training(args.base_dir, cfg, tc, trc, logger, device=dev)
+    finally:
+        mesh.destroy_distributed()

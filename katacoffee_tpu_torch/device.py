@@ -6,8 +6,6 @@ import os
 
 import torch
 
-MULTI_GPU = "ROADMAP Queue 1 item 8 (multiple GPUs)"
-
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller names
@@ -22,21 +20,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-def refuse_several_gpus(command: str, dev: torch.device, use_mesh: bool, batch_size: int) -> None:
-    """Where the JAX package would shard the batch over every visible device
-    (use_mesh, more than one device, the batch divisible), the port raises:
-    several GPUs are not ported yet."""
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if use_mesh and n_dev > 1 and batch_size % n_dev == 0:
-        raise NotImplementedError(
-            f"katacoffee_tpu_torch {command}: sharding the batch over {n_dev} GPUs (use_mesh) is not ported yet, "
-            f"{MULTI_GPU}; make one GPU visible (CUDA_VISIBLE_DEVICES)")
-
-
 def refuse_multi_host(command: str) -> None:
-    """A multi-process launch (torch's WORLD_SIZE, or the JAX package's
-    coordinator variables that the loop's launch scripts set) is not ported."""
+    """A command for which the JAX package forms no cluster (match,
+    gatekeeper, loop) raises when a launcher started it as one of several
+    processes (torch's WORLD_SIZE, or the JAX package's coordinator
+    variables that the loop's launch scripts set)."""
     env = os.environ
     if (int(env.get("WORLD_SIZE") or 1) > 1 or env.get("JAX_COORDINATOR_ADDRESS")
             or int(env.get("JAX_NUM_PROCESSES") or 1) > 1):
-        raise NotImplementedError(f"katacoffee_tpu_torch {command}: multi-host runs are not ported yet, {MULTI_GPU}")
+        raise NotImplementedError(
+            f"katacoffee_tpu_torch {command} runs as one process (the JAX package forms no cluster for it); "
+            f"selfplay and train run one rank a GPU under torchrun --nproc-per-node N, and use every visible GPU "
+            f"without it")

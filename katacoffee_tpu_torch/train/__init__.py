@@ -5,5 +5,6 @@ from katacoffee_tpu_torch.train.train import (
     TrainConfig,
     TrainState,
     init_train_state,
+    make_sharded_train_step,
     make_train_step,
 )

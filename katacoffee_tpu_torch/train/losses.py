@@ -46,11 +46,15 @@ def compute_losses(
     batch: TrainingBatch,
     syms: torch.Tensor | None = None,
     levels: torch.Tensor | None = None,
+    weight_sum: torch.Tensor | None = None,
 ):
     """(total loss, metrics dict of 0-d tensors), JAX losses.py:43. `levels`
     [R] cuts each row's visible history before feature extraction (no
     masking if None); `syms` [R] applies a dihedral symmetry per row to the
-    features and every spatial target (none if None)."""
+    features and every spatial target (none if None). Every weighted mean
+    divides by the batch's weight sum, or by `weight_sum` where given: a
+    rank of a data-parallel step passes the sum over every rank's rows, so
+    that its loss and metrics are its share of the global batch's."""
     states = batch.states
     if levels is not None:
         states = mask_history_state(states, levels)
@@ -71,7 +75,7 @@ def compute_losses(
 
     out = model(spatial, glob)
     w = batch.weight
-    wsum = torch.clamp(w.sum(), min=1e-8)
+    wsum = torch.clamp(w.sum() if weight_sum is None else weight_sum, min=1e-8)
 
     def wmean(x, weights=w):
         return (x * weights).sum() / wsum

@@ -1,5 +1,6 @@
-"""The training step: the port of `katacoffee_tpu/train/train.py` on one
-device (the sharded step is ROADMAP Queue 1 item 8).
+"""The training step: the port of `katacoffee_tpu/train/train.py`, on one
+device (`make_train_step`) or data-parallel over the ranks of a process
+group (`make_sharded_train_step`).
 
 The optimizer is optax's chain in the JAX package (train.py:111-137),
 computed with torch's multi-tensor ops in the same order and rounding:
@@ -28,6 +29,7 @@ from katacoffee_tpu_torch.game import symmetry as S
 from katacoffee_tpu_torch.game.board import GameConfig
 from katacoffee_tpu_torch.nn.features import sample_history_levels
 from katacoffee_tpu_torch.nn.model import CoffeeNet, init_params
+from katacoffee_tpu_torch.parallel import mesh
 from katacoffee_tpu_torch.selfplay.actor import TrainingBatch
 from katacoffee_tpu_torch.train.losses import compute_losses
 
@@ -199,17 +201,47 @@ def make_train_step(cfg: GameConfig, tc: TrainConfig, batch_size: int):
     augmentation draws come from `generator` or are given as `draws`
     (StepDraws). `mark(part)`, if given, is called after "forward+loss",
     "backward" and "optimizer+EMA" (for timing the parts)."""
+    return _make_step(cfg, tc, batch_size, None)
 
+
+def make_sharded_train_step(cfg: GameConfig, tc: TrainConfig, batch_size: int, world: int):
+    """The data-parallel train step over a process group of `world` ranks
+    (JAX train.py:193 `make_sharded_train_step`), called as
+    `make_train_step`'s on every rank with the rank's batch_size/world rows:
+    each rank runs forward and backward on its rows, every weighted mean
+    divided by the weight sum over all ranks' rows; the float32 gradients
+    and the metrics are summed over the ranks (one all-reduce each), so the
+    global-norm clip, the optimizer (with the global batch_size's learning
+    rate) and the EMA see the global batch's, and every rank's parameters,
+    trace, EMA and count stay bit-identical. Injected `draws` are the
+    global batch's, and each rank takes its block (`rank_rows`), as JAX
+    draws them for the global batch; a `generator` draws the rank's own."""
+    if batch_size % world:
+        raise ValueError(f"a batch of {batch_size} rows does not divide over {world} ranks")
+    return _make_step(cfg, tc, batch_size, world)
+
+
+def _make_step(cfg: GameConfig, tc: TrainConfig, batch_size: int, world: int | None):
     def train_step(state: TrainState, batch: TrainingBatch, generator: torch.Generator | None = None,
                    draws: StepDraws | None = None, mark: Callable[[str], None] | None = None):
+        rows = batch.weight.shape[0]
+        weight_sum = None
+        if world is not None:
+            rank, size = mesh.world()
+            if size != world or rows * world != batch_size:
+                raise ValueError(f"the step is for {world} ranks of {batch_size // world} rows; this rank has "
+                                 f"{rows} of a world of {size}")
+            if draws is not None:
+                draws = StepDraws(*(None if d is None else mesh.rank_rows(d, rank, world) for d in draws))
+            weight_sum = mesh.all_reduce_sum(batch.weight.sum())
         if draws is None:
-            draws = draw_augmentation(cfg, tc, batch.weight.shape[0], generator)
+            draws = draw_augmentation(cfg, tc, rows, generator)
         model = state.model
         for p in model.parameters():
             p.grad = None
         with torch.enable_grad():  # whatever the caller's grad mode
             loss, metrics = compute_losses(cfg, model, batch, syms=draws.syms if tc.symmetry_augment else None,
-                                           levels=draws.levels if tc.history_mask else None)
+                                           levels=draws.levels if tc.history_mask else None, weight_sum=weight_sum)
             if mark:
                 mark("forward+loss")
             loss.backward()
@@ -217,6 +249,10 @@ def make_train_step(cfg: GameConfig, tc: TrainConfig, batch_size: int):
             mark("backward")
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in model.parameters()]
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if world is not None:
+            grads = _summed_over_ranks(grads)
+            keys = sorted(metrics)
+            metrics = dict(zip(keys, _summed_over_ranks([metrics[k] for k in keys])))
         metrics["grad_norm"] = apply_gradients(tc, batch_size, state, grads)
         for p in model.parameters():
             p.grad = None
@@ -225,3 +261,10 @@ def make_train_step(cfg: GameConfig, tc: TrainConfig, batch_size: int):
         return state, metrics
 
     return train_step
+
+
+def _summed_over_ranks(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """`tensors` summed over the ranks by one all-reduce of their
+    concatenation."""
+    flat = mesh.all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]))
+    return [x.view_as(t) for x, t in zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]

@@ -55,6 +55,17 @@ class Logger:
             logger.add_file(os.path.join(d, f"log{stamp}.log"))
         return logger
 
+    def __getstate__(self) -> dict:
+        """A logger sent to another process (a spawned rank) keeps its
+        sinks: the files are opened again there, for appending."""
+        with self._lock:
+            return {"paths": [f.name for f in self._files], "stdout": self._stdout, "stderr": self._stderr}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__init__(state["stdout"], state["stderr"])
+        for path in state["paths"]:
+            self.add_file(path)
+
     def write(self, msg: str):
         stamp = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S%z")
         line = f"{stamp}: {msg}\n"

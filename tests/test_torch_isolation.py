@@ -48,6 +48,18 @@ def test_the_selfplay_slice_modules_are_checked():
         assert PORT / rel in sources, rel
 
 
+def test_the_distributed_and_parallel_modules_are_checked():
+    """The contribution bus's and the several-GPU layer's modules are among
+    the sources checked above and among the modules imported without the
+    reference package."""
+    sources = _port_sources()
+    imported = {".".join(p.relative_to(PORT).with_suffix("").parts) for p in PORT.rglob("*.py")}
+    for rel in ("distributed/__init__.py", "distributed/server.py", "distributed/client.py", "parallel/__init__.py",
+                "parallel/mesh.py"):
+        assert PORT / rel in sources, rel
+        assert ".".join(Path(rel).with_suffix("").parts) in imported, rel
+
+
 def test_the_actor_modules_are_checked():
     """The selfplay actor's modules are among the sources checked above and
     among the modules imported without the reference package below."""
@@ -205,21 +217,50 @@ def test_selfplay_command_refuses_the_cpu_without_cuda(tmp_path):
 
 
 def test_selfplay_command_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
-    """Several GPUs (use_mesh) and multi-process launches name the roadmap
-    item that ports them."""
-    from katacoffee_tpu_torch.command import selfplay
+    """Several GPUs and multi-process launches are no longer refused: under
+    a launcher the command joins its process group; outside one, with
+    several visible GPUs, use_mesh and a batch that divides over them, the
+    daemon runs one rank a GPU through launch_local. Where the JAX package
+    forms no cluster (match, gatekeeper, loop) a launch still raises and
+    names torchrun."""
+    from katacoffee_tpu_torch.command import gatekeeper, loop, match, selfplay
     from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.parallel import mesh
     from katacoffee_tpu_torch.search.params import SearchParams
 
+    calls = []
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        selfplay.main(["-output-dir", str(tmp_path)], device="cpu")
+    monkeypatch.setattr(mesh, "init_distributed", lambda backend=None, *, device=None: calls.append(("init", device)))
+    monkeypatch.setattr(selfplay, "run_selfplay_daemon", lambda *a, **kw: calls.append(("daemon", kw["device"])))
+    selfplay.main(["-output-dir", str(tmp_path / "sp")], device="cpu")
+    assert calls == [("init", torch.device("cpu")), ("daemon", torch.device("cpu"))]
+    for run in (lambda: loop.main(["-base-dir", str(tmp_path)], device="cpu"),
+                lambda: gatekeeper.main(["-base-dir", str(tmp_path)], device="cpu"),
+                lambda: match.main(["random", "random"], device="cpu")):
+        with pytest.raises(NotImplementedError, match="torchrun"):
+            run()
+    assert mesh.local_world_size(torch.device("cuda"), True, 8) == 1  # under the launcher
     monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.undo()
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    launched = []
+
+    def launch_local(fn, n, *args, **kw):
+        launched.append((fn, n, args[3].batch_size))
+        return [(123, {"segment": [1.0]})] * n
+
+    monkeypatch.setattr(mesh, "launch_local", launch_local)
     spc = selfplay.SelfplayConfig(batch_size=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        selfplay.run_selfplay_daemon(str(tmp_path), GameConfig(), SearchParams.for_selfplay(), spc, device="cuda")
+    walls = {}
+    assert selfplay.run_selfplay_daemon(str(tmp_path), GameConfig(), SearchParams.for_selfplay(), spc, device="cuda",
+                                        walls=walls) == 123
+    assert launched == [(selfplay._daemon_rank, 4, 8)] and walls == {"segment": [1.0]}
+    cuda = torch.device("cuda")
+    assert [mesh.local_world_size(cuda, True, 8), mesh.local_world_size(cuda, True, 6),
+            mesh.local_world_size(cuda, False, 8), mesh.local_world_size(torch.device("cuda", 1), True, 8),
+            mesh.local_world_size(torch.device("cpu"), True, 8)] == [4, 1, 1, 1, 1]
 
 
 TRAINER_MODULES = ("nn/features.py", "nn/model.py", "dataio/flaxbytes.py", "dataio/checkpoints.py",
@@ -261,25 +302,34 @@ def test_trainer_entry_points_refuse_the_cpu_without_cuda(tmp_path):
 
 
 def test_trainer_refuses_several_gpus_and_hosts(monkeypatch, tmp_path):
-    """The sharded train step and multi-process launches name the roadmap
-    item that ports them."""
+    """The data-parallel trainer is no longer refused: under a launcher
+    `train` joins its process group; outside one, with several visible
+    GPUs, run_training runs one rank a GPU through launch_local; the
+    mixed-size trainer, which shards nothing in the JAX package, runs on
+    the one device it is given."""
     from katacoffee_tpu_torch.command import train
     from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.parallel import mesh
     from katacoffee_tpu_torch.train.train import TrainConfig
 
+    calls = []
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train.main(["-base-dir", str(tmp_path)], device="cpu")
-    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.setattr(mesh, "init_distributed", lambda backend=None, *, device=None: calls.append(("init", device)))
+    monkeypatch.setattr(train, "run_training", lambda *a, **kw: calls.append(("train", kw["device"])))
+    train.main(["-base-dir", str(tmp_path)], device="cpu")
+    assert calls == [("init", torch.device("cpu")), ("train", torch.device("cpu"))]
+    monkeypatch.undo()
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    launched = []
+    monkeypatch.setattr(mesh, "launch_local", lambda fn, n, *args, **kw: launched.append((fn, n, args)) or [7] * n)
     trc = train.TrainerConfig(model="b1c6", batch_size=256)
-    for run in (lambda: train.run_training(str(tmp_path), GameConfig(), TrainConfig(), trc, device="cuda"),
-                lambda: train.run_training_mixed(str(tmp_path), [GameConfig()], TrainConfig(), trc,
-                                                 device="cuda")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            run()
+    assert train.run_training(str(tmp_path), GameConfig(), TrainConfig(), trc, device="cuda") == 7
+    assert [(fn, n, args[3]) for fn, n, args in launched] == [(train.run_training, 4, trc)]
     assert os.listdir(tmp_path) == []
+    with pytest.raises(FileNotFoundError, match="no shuffled data"):
+        train.run_training_mixed(str(tmp_path), [GameConfig()], TrainConfig(), trc, device="cpu")
 
 
 GATING_MODULES = ("program/__init__.py", "program/setup.py", "program/match.py", "utils/elo.py",
@@ -333,9 +383,9 @@ def test_gating_entry_points_refuse_the_cpu_without_cuda(tmp_path):
 
 def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
     """`train`, `shuffle`, `validate`, `checkpoint`, `gtp`, `analysis`,
-    `evalsgf` and `genconfig` dispatch to their commands (each here stubbed
-    to echo its arguments), `version` and `printclockinfo` print; `demoplay`
-    (not ported yet) and unknown subcommands exit 2 and say they are not
+    `evalsgf`, `genconfig`, `serve` and `contribute` dispatch to their
+    commands (each here stubbed to echo its arguments), `version` and
+    `printclockinfo` print; unknown subcommands exit 2 and say they are not
     ported."""
     from katacoffee_tpu_torch import cli
     from katacoffee_tpu_torch.command import analysis, checkpoint, evalsgf, genconfig, gtp, selfplay, train, validate
@@ -376,9 +426,15 @@ def test_cli_runs_the_ported_subcommands(capsys, monkeypatch):
     capsys.readouterr()
     assert cli.main(["version"]) == 0 and capsys.readouterr().out == "0.1.0\n"
     assert cli.main(["printclockinfo"]) == 0 and "Resolution in seconds: " in capsys.readouterr().out
-    for cmd in ("serve", "nonsense"):
-        assert cli.main([cmd]) == 2
-        assert f"{cmd} is not ported" in capsys.readouterr().err
+    from katacoffee_tpu_torch.distributed import client
+
+    monkeypatch.setattr(client, "main_serve", lambda argv: seen.append(("serve", argv)))
+    monkeypatch.setattr(client, "main", lambda argv: seen.append(("contribute", argv)))
+    assert cli.main(["serve", "-base-dir", "b"]) == 0
+    assert cli.main(["contribute", "-server", "http://h:1", "-max-cycles", "1"]) == 0
+    assert seen[-2:] == [("serve", ["-base-dir", "b"]), ("contribute", ["-server", "http://h:1", "-max-cycles", "1"])]
+    assert cli.main(["nonsense"]) == 2
+    assert "nonsense is not ported" in capsys.readouterr().err
 
 
 GTP_MODULES = ("game/io.py", "search/timecontrols.py", "search/ownership.py", "program/engine.py",

@@ -126,7 +126,8 @@ def test_benchmark_main_reports_each_batch_size(capsys):
 def test_cli_runs_the_gating_subcommands(capsys, monkeypatch):
     """`gatekeeper`, `match`, `loop`, `summarize_sgfs` and `benchmark`
     dispatch to their commands' main (each stubbed to echo its arguments)
-    and are listed in the help; `demoplay` (not ported yet) exits 2."""
+    and are listed in the help; `serve`, the last JAX subcommand ported,
+    dispatches too, and a name no package has exits 2."""
     from katacoffee_tpu_torch.command import benchmark, gatekeeper, loop, match, summarize_sgfs
 
     assert cli.main(["--help"]) == 0
@@ -139,8 +140,12 @@ def test_cli_runs_the_gating_subcommands(capsys, monkeypatch):
         assert cli.main([cmd, "-x", cmd]) == 0
     gating = ("gatekeeper", "match", "loop", "summarize_sgfs", "benchmark")
     assert seen == [(c, ["-x", c]) for c in gating] and set(gating) <= set(cli._COMMANDS)
-    assert cli.main(["serve"]) == 2
-    assert "serve is not ported" in capsys.readouterr().err
+    from katacoffee_tpu_torch.distributed import client
+
+    monkeypatch.setattr(client, "main_serve", lambda argv: seen.append(("serve", argv)))
+    assert cli.main(["serve", "-x"]) == 0 and seen[-1] == ("serve", ["-x"])
+    assert cli.main(["serves"]) == 2
+    assert "serves is not ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("text", ["", "xSize = 6\nwinLen = 3\nuseUncertainty = false\npolicyOptimism = 0.5\n"
