@@ -45,7 +45,8 @@ the run with a non-zero exit and a traceback:
      finalize_targets)
      with both kernels against both plain versions under one generator seed
      (every field identical), card against CPU at float32 on a B=8 4-move
-     segment with the same injected draws, and side positions, whole-game
+     segment at 32 visits (64 until phase 15 met a slow host) with the
+     same injected draws, and side positions, whole-game
      forks and tree records at B=512 (configs/selfplay.cfg's probabilities)
      with run_side_segment;
   6. the selfplay command (`phase_selfplay_command`): `command.selfplay.main`
@@ -56,7 +57,8 @@ the run with a non-zero exit and a traceback:
      copies of the inputs this run gave it (every gather shape; the trees
      of every 100th descent launch of the moves' B=256 and of the side
      searches' 24 lanes, the one with the most levels of each timed); then
-     twice at 16 visits (64 until the gatekeeper's phase came) and 2
+     twice at 8 visits (16 until phase 15 met a slow host, 64 until the
+     gatekeeper's phase came) and 2
      segments of 16 moves with one seed: the shards
      read back and checked, the SGFs replayed, both runs' data equal;
   7. the trainer (`phase_trainer`): the port's `shuffle` over phase 6's shards, then
@@ -69,20 +71,22 @@ the run with a non-zero exit and a traceback:
      neither kernel (the JAX trainer reaches no Pallas kernel);
   8. the gatekeeper: (a)
      `command.gatekeeper.main` in this process with configs/gatekeeper.cfg
-     and `-override-config maxVisits=32` (200 games at 32 visits; 64 until
-     the script met a slow host, 150, the config's, until the contribution
-     bus's phase came; b6c96 bf16, for_gatekeeper():
+     and `-override-config maxVisits=16` (200 games at 16 visits; 32 until
+     phase 15 met a slow host, 64 until the script first met one, 150, the
+     config's, until the contribution bus's phase came; b6c96 bf16, for_gatekeeper():
      uncertainty weighting and policy optimism) gating run-s5200 against
      run-s4800, with both kernels' launch counts set to 0 before and read
      after and their inputs copied (`PathCopies`, as in phase 6): wall,
      games/s, plies, searched visits/s, the tally and the decision, every
      SGF replayed to its winner, each kernel held to its plain version on
      the copies and timed, and a profile of a B=100 gating search; (b) a
-     float32 gating match of 4 games at 16 visits (8 games until the GTP
-     phase came, 32 visits until the analysis phase came) on the card and
+     float32 gating match of 4 games at 8 visits (8 games until the GTP
+     phase came, 32 visits until the analysis phase came, 16 until phase 15
+     met a slow host) on the card and
      on the
      CPU with the same injected draws, the same games; (c) one cycle of
-     `command.loop.run_loop` at reduced depth (selfplay, shuffle, 20 train
+     `command.loop.run_loop` at reduced depth (selfplay at 8 visits, 16
+     until phase 15 met a slow host, shuffle, 20 train
      steps from the flagship checkpoint, export, a 16-game gate at 8
      visits, 16 until the analysis phase came);
   9. the GTP engine (`phase_gtp`): (a)
@@ -170,14 +174,32 @@ the run with a non-zero exit and a traceback:
      2 alternated pairs (3 until the book's phase came); every profile of
      phases 8-13 runs 5 playouts (10 until the book's B=64 round came,
      the profiler's own processing being most of a profile's wall);
+ 15. K playouts a round, the catch-up leak and the gaussian evaluator,
+     the main path since they were ported (`phase_search_threads`, after
+     13): (a) `for_selfplay()` searches at B=64, 200 visits (b6c96 bf16),
+     with numSearchThreads 1, 2 and 4 on the same roots, each a fresh
+     search and one reused move inside `PathCopies` (one descent launch a
+     round, one root gather a search), then the leak at 0.1 with K = 1 and
+     2: rounds, wall and root visits/s; (b) each kernel held to its plain
+     version on (a)'s copies and timed, the rows of B*K and the leak
+     instantiations among them, then the leak on each run's largest copied
+     tree with its edges of two or more visits one visit behind (catch-ups
+     counted with and without it); (c) a float32 K=2 search (B=8, 64
+     visits) on the card and the CPU with the same root draws; (d) one
+     genmove of the GTP engine at 200 visits with numSearchThreads 4 by
+     -override-config, and a B=64 200-visit search under
+     `gaussian_prior_eval_fn`, their launches counted;
  14. one log line a timed kernel row (us, bound, launch floor, library
      call; for the descent the deepest game's levels and us a level over
      the floor); the trainer's, the GTP engine's, the analysis engine's,
-     the gatekeeper's, the book's and the contribution bus's numbers as
-     one JSON line each, the kernel table as one JSON line (launches and
-     check from phase 12 (a), times on its copies, the earlier paths'
-     launches and the other shapes and trees beside them, each row with
-     `floor_ms`, each descent row with `max_levels` and `us_per_level`),
+     the gatekeeper's, the book's, the contribution bus's and phase 15's
+     numbers as one JSON line each, the kernel table as one JSON line
+     (launches and check from phase 12 (a), times on its copies, the
+     earlier paths' launches and the other shapes and trees beside them,
+     each row with `floor_ms`, each descent row with `max_levels` and
+     `us_per_level`; then a row for each of phase 15's descent
+     instantiations, rows of K = 2 and K = 4 and the leak with one and two
+     playouts a round, each with its own run's launches and timed copy),
      then the result line; then the process leaves by `os._exit` with
      main's code, its output flushed and every process it started ended,
      without the interpreter's teardown (a teardown of this process, after
@@ -457,9 +479,10 @@ def descent_inputs(cfg, sp, tree):
     return node, depth, active, path, acts, mcts.make_level_scratch(cfg, B, max_depth, dev)
 
 
-def run_descent(fn, cfg, sp, tree, start_ev, inputs, avoid_until=None):
+def run_descent(fn, cfg, sp, tree, start_ev, inputs, avoid_until=None, leak_u=None, acts_f=None):
     """`fn` (kernel dispatcher or plain version) on copies of the inputs;
-    returns (leaf, leaf_depth, path, acts, edge_visits, *scratch, caught)."""
+    returns (leaf, leaf_depth, path, acts, edge_visits, *scratch, caught),
+    and the flat actions after them for a round's rows (`acts_f`)."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
@@ -467,10 +490,11 @@ def run_descent(fn, cfg, sp, tree, start_ev, inputs, avoid_until=None):
     node, depth, active, path, acts, scratch = inputs
     tree.edge_visits.copy_(start_ev)
     p, a = path.clone(), acts.clone()
+    af = None if acts_f is None else acts_f.clone()
     sc = mcts.LevelScratch(*(x.clone() for x in scratch))
-    leaf, leaf_depth, caught = fn(cfg, sp, tree, node, depth, active, p, a, sc, avoid_until)
+    leaf, leaf_depth, caught = fn(cfg, sp, tree, node, depth, active, p, a, sc, avoid_until, leak_u=leak_u, acts_f=af)
     torch.cuda.synchronize()
-    return (leaf, leaf_depth, p, a, tree.edge_visits.clone(), *sc, caught)
+    return (leaf, leaf_depth, p, a, tree.edge_visits.clone(), *sc, caught) + (() if af is None else (af,))
 
 
 def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_until=None) -> tuple[int, float]:
@@ -483,7 +507,8 @@ def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_unt
     score of the other lane by more than 0 and at most NEAR_TIE: equal scores
     go to the lower lane, as torch.argmax does. Leaves `tree.edge_visits` at
     `start_ev`. Returns (games whose acts differ, max |diff| of the float
-    outputs of the others)."""
+    outputs of the others). The rows of a round of K playouts a game
+    (row r of game r // K) are held the same way, their flat actions too."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
@@ -495,7 +520,8 @@ def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_unt
     same = ~flip
     err = 0.0
     for i, (x, y) in enumerate(zip(got, want)):
-        if not torch.equal(x[same], y[same]):
+        # a round's rows write no edge visit: the whole tensor is compared
+        if not (torch.equal(x, y) if x.shape[0] != same.shape[0] else torch.equal(x[same], y[same])):
             raise AssertionError(f"{label}: descent output {i} differs from plain")
         if x.is_floating_point() and same.any():
             err = max(err, (x[same] - y[same]).abs().max().item())
@@ -505,6 +531,7 @@ def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_unt
 
     B, D = want[5].shape[:2]
     bidx = torch.arange(B, device=acts_p.device)
+    gidx = torch.div(bidx, B // tree.stats.shape[0], rounding_mode="floor")  # each row's game
     first = differ.to(torch.int8).argmax(-1)
     path_k, path_p = got[2], want[2]
     cols = torch.arange(D + 1, device=acts_p.device)[None, :]
@@ -519,14 +546,16 @@ def compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_unt
     beyond = torch.zeros(tree.edge_visits.shape[:2], dtype=torch.bool, device=acts_p.device)
     for p in (path_k, path_p):
         m = (cols >= first[:, None]) & (p >= 0) & flip[:, None]
-        beyond[bidx[:, None].expand_as(p)[m], p[m]] = True
-    if not torch.equal(got[4][~beyond & flip[:, None]], want[4][~beyond & flip[:, None]]):
+        beyond[gidx[:, None].expand_as(p)[m], p[m]] = True
+    games = torch.zeros(tree.stats.shape[0], dtype=torch.bool, device=acts_p.device)
+    games[gidx[flip]] = True
+    if not torch.equal(got[4][~beyond & games[:, None]], want[4][~beyond & games[:, None]]):
         raise AssertionError(f"{label}: edge visits differ off the paths below the first different act")
 
     at = path_p[bidx, first].clamp(min=0)
-    recorded = active & (first >= depth) & (first <= want[1]) & (first < D) & ~tree.is_terminal[bidx, at]
+    recorded = active & (first >= depth) & (first <= want[1]) & (first < D) & ~tree.is_terminal[gidx, at]
     lane_k, lane_p = acts_k[bidx, first], acts_p[bidx, first]
-    _, _, sel = mcts._interior_level(cfg, sp, tree, bidx, at, first, avoid_until)
+    _, _, sel = mcts._interior_level(cfg, sp, tree, gidx, at, first, avoid_until)
     C = sel.shape[1]
     in_range = (lane_k >= 0) & (lane_k < C)
     gap = sel[bidx, lane_p] - sel[bidx, lane_k.clamp(0, C - 1)]
@@ -568,7 +597,7 @@ def forbidden_lanes(cfg, tree, inputs, out, avoid_until) -> list[int]:
     return hits.tolist()
 
 
-def descent_bound_ms(cfg, tree, inputs, out, sp=None, avoid_until=None) -> float:
+def descent_bound_ms(cfg, tree, inputs, out, sp=None, avoid_until=None, leak=False) -> float:
     """Least time for this descent at the HBM rate, each byte the kernel must
     read or write counted once, from the levels this run's data needs. Per
     level: the node's terminal flag and last move (17 B), 12 B per candidate
@@ -580,7 +609,12 @@ def descent_bound_ms(cfg, tree, inputs, out, sp=None, avoid_until=None) -> float
     and the 4 B edge-visit write (its read is the candidate's); per game 17 B
     in and 17 B out (leaf, depth, caught). With noise pruning (`sp`) 4 B a
     candidate's rank read and 4 B a lane's rank_c written; with `avoid_until`
-    4 B a candidate's avoid depth and 1 B a game's first mover."""
+    4 B a candidate's avoid depth and 1 B a game's first mover; with `leak`
+    4 B a level's draw. A round's rows (more rows than games) write an 8 B
+    flat action a recorded level and no edge visit, and the rows of a game
+    read one tree: the reads of a node (its fields, candidates, children's
+    stats rows, utility, first stats row, ranks and avoid depths) count
+    once for each distinct (game, node), the per-row writes for each row."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
@@ -588,7 +622,8 @@ def descent_bound_ms(cfg, tree, inputs, out, sp=None, avoid_until=None) -> float
     node, depth, active, _, _, scratch = inputs
     leaf_depth, out_path, out_child_c = out[1], out[2], out[7]
     B, D, C = scratch.child_c.shape
-    bidx = torch.arange(B, device=node.device)[:, None]
+    rows = B != tree.stats.shape[0]
+    bidx = torch.div(torch.arange(B, device=node.device), B // tree.stats.shape[0], rounding_mode="floor")[:, None]
     last = torch.where(leaf_depth < D, leaf_depth, leaf_depth - 1)
     slots = torch.arange(D, device=node.device)[None, :]  # slot j <-> depth j + 1
     done = active[:, None] & (slots >= depth[:, None] - 1) & (slots <= last[:, None] - 1)
@@ -596,24 +631,35 @@ def descent_bound_ms(cfg, tree, inputs, out, sp=None, avoid_until=None) -> float
     spot = tree.states.last_spot[bidx, nodes]
     spot = torch.where((spot < 0) | (spot > cfg.area), cfg.area, spot)
     row = spot * 5 + tree.states.last_dir[bidx, nodes].clamp(0, 4)
-    rows = torch.unique(row[done]).numel()
+    table_rows = torch.unique(row[done]).numel()
+    # once[r, j]: the first of the recorded levels that read game bidx[r]'s node (all of them, one row a game)
+    key = torch.where(done, bidx * tree.stats.shape[1] + nodes, -1).flatten()
+    _, inv = torch.unique(key, return_inverse=True)
+    pos = torch.arange(key.numel(), device=node.device)
+    at = torch.full((int(inv.max()) + 1,), key.numel(), device=node.device).scatter_reduce(0, inv, pos, "amin")
+    once = torch.zeros(key.numel(), dtype=torch.bool, device=node.device)
+    once[at] = True
+    once = once.view_as(done) & done
     cand = mcts._cand_table(cfg, node.device).reshape(-1, C)[row]
     nonterm = done & ~tree.is_terminal[bidx, nodes]
-    first = nonterm & (slots == depth[:, None] - 1)
-    levels = int(done.sum())
-    valid = int(((cand >= 0) & done[..., None]).sum())
-    present = int(((out_child_c >= 0) & done[..., None]).sum())
+    first = nonterm & once & (slots == depth[:, None] - 1)
+    levels, nodes_read = int(done.sum()), int(once.sum())
+    valid = int(((cand >= 0) & once[..., None]).sum())
+    present = int(((out_child_c >= 0) & once[..., None]).sum())
     steps = int(torch.where(active, leaf_depth - depth, 0).sum())
-    nbytes = (levels * (17 + 44 * C) + int(nonterm.sum()) * 12 + int(first.sum()) * 32 + rows * 2 * C
-              + valid * 12 + present * 32 + steps * 12 + B * 34)
+    nbytes = (nodes_read * 17 + levels * 44 * C + int((nonterm & once).sum()) * 4
+              + int(nonterm.sum()) * (16 if rows else 8) + int(first.sum()) * 32
+              + table_rows * 2 * C + valid * 12 + present * 32 + steps * (8 if rows else 12) + B * 34)
     if sp is not None and sp.useNoisePruning:
         nbytes += valid * 4 + levels * 4 * C
     if avoid_until is not None:
         nbytes += valid * 4 + int(active.sum())
+    if leak:
+        nbytes += levels * 4
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30, avoid_until=None):
+def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30, avoid_until=None, leak_u=None, acts_f=None):
     """Device time of one kernel launch by `event_ms` (as the launch floor
     is timed) and the plain version's wall time per call, both on the same
     snapshot restored before each call. Medians, in ms."""
@@ -631,8 +677,8 @@ def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30, avoid_until=No
         p.copy_(path)
         a.copy_(acts)
 
-    kernel = event_ms(lambda: descend_interior(sp, cand, tree, node, depth, active, p, a, scratch, avoid_until),
-                      reps, prepare=restore)
+    kernel = event_ms(lambda: descend_interior(sp, cand, tree, node, depth, active, p, a, scratch, avoid_until,
+                                               leak_u, acts_f), reps, prepare=restore)
     plain = []
     for _ in range(max(reps // 3, 3)):
         tree.edge_visits.copy_(start_ev)
@@ -640,7 +686,7 @@ def time_descent(cfg, sp, tree, start_ev, inputs, reps: int = 30, avoid_until=No
         a.copy_(acts)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        mcts._descend_interior_plain(cfg, sp, tree, node, depth, active, p, a, scratch, avoid_until)
+        mcts._descend_interior_plain(cfg, sp, tree, node, depth, active, p, a, scratch, avoid_until, leak_u, acts_f)
         torch.cuda.synchronize()
         plain.append((time.perf_counter() - t) * 1e3)
     tree.edge_visits.copy_(start_ev)
@@ -704,8 +750,8 @@ def phase_descend(dev, cfg, cfg9, batch=512, sims=300, batch9=64, sims9=200, sel
         caught_in_search = torch.zeros((), dtype=torch.int64, device=dev)
         kept = mcts._descend_interior
 
-        def counting(*args):
-            out = kept(*args)
+        def counting(*args, **kwargs):
+            out = kept(*args, **kwargs)
             caught_in_search.add_(out[2].sum())
             return out
 
@@ -1090,7 +1136,7 @@ def phase_selfplay_ab(dev, cfg, batch=64, visits=16, moves=16, max_segments=4):
             "traj": traj}
 
 
-def phase_selfplay_card_vs_cpu(dev, cfg, batch=8, visits=64, moves=4):
+def phase_selfplay_card_vs_cpu(dev, cfg, batch=8, visits=32, moves=4):
     """The card against the CPU at float32: a B=8 segment of 4 moves from
     positions a few plies before a game's end (games end and reset inside
     it) with the same injected draws on both. Played moves must be equal in
@@ -1362,18 +1408,21 @@ def check_path_gather(label, table, idx) -> tuple[dict, float]:
     return time_gather(table, idx, label + ": "), (got - want).abs().max().item()
 
 
-def check_path_descent(label, cfg, sp, tree, inputs, timed: bool, avoid_until=None) -> dict:
+def check_path_descent(label, cfg, sp, tree, inputs, timed: bool, avoid_until=None, leak_u=None,
+                       acts_f=None) -> dict:
     """The descent kernel against `_descend_interior_plain` on a copy of the
-    tree and inputs the main path gave it at one launch (with the avoid mask
-    it was given), held by `compare_descent`; with `timed`, then timed by
-    `time_descent`, its bound from this copy."""
+    tree and inputs the main path gave it at one launch (with the avoid
+    mask, leak draws and a round's flat-action rows it was given), held by
+    `compare_descent`; with `timed`, then timed by `time_descent`, its bound
+    from this copy."""
     import torch
 
     from katacoffee_tpu_torch.search import mcts
 
     start_ev = tree.edge_visits.clone()
-    got = run_descent(mcts._descend_interior, cfg, sp, tree, start_ev, inputs, avoid_until)
-    want = run_descent(mcts._descend_interior_plain, cfg, sp, tree, start_ev, inputs, avoid_until)
+    extra = dict(leak_u=leak_u, acts_f=acts_f)
+    got = run_descent(mcts._descend_interior, cfg, sp, tree, start_ev, inputs, avoid_until, **extra)
+    want = run_descent(mcts._descend_interior_plain, cfg, sp, tree, start_ev, inputs, avoid_until, **extra)
     flips, err = compare_descent(label, cfg, sp, tree, start_ev, inputs, got, want, avoid_until)
     depth, active = inputs[1:3]
     leaf_depth = want[1]
@@ -1382,13 +1431,14 @@ def check_path_descent(label, cfg, sp, tree, inputs, timed: bool, avoid_until=No
     levels = int(game_levels.sum())
     B, N, A = tree.prior.shape
     out = dict(timed_levels=levels, max_levels=int(game_levels.max()), flips=flips, max_abs_err=err,
-               games=int(active.sum()), caught=int(want[-1].sum()), shape=[B, N, A, inputs[5].child_c.shape[-1]])
+               games=int(active.sum()), caught=int(want[10].sum()), shape=[B, N, A, inputs[5].child_c.shape[-1]],
+               rows=int(active.shape[0]))
     if avoid_until is not None:
         out["forbidden_by_game"] = forbidden_lanes(cfg, tree, inputs, want, avoid_until)
         out["forbidden_lanes"] = sum(out["forbidden_by_game"])
     if timed:
-        out["ms"], out["plain_ms"] = time_descent(cfg, sp, tree, start_ev, inputs, avoid_until=avoid_until)
-        out["bound_ms"] = descent_bound_ms(cfg, tree, inputs, got, sp, avoid_until)
+        out["ms"], out["plain_ms"] = time_descent(cfg, sp, tree, start_ev, inputs, avoid_until=avoid_until, **extra)
+        out["bound_ms"] = descent_bound_ms(cfg, tree, inputs, got, sp, avoid_until, leak_u is not None)
         log(f"{label}: {out['games']} games descending, {levels} levels, the deepest game {out['max_levels']}: "
             f"kernel {out['ms'] * 1e3:.2f} us device, plain {out['plain_ms'] * 1e3:.1f} us wall, "
             f"bound {out['bound_ms'] * 1e3:.3f} us (bytes)")
@@ -1409,7 +1459,7 @@ class PathCopies:
         import collections
 
         self.snapshot_every = snapshot_every
-        self.sims = 0
+        self.sims = self.rounds = 0
         self.gathers, self.descents, self.descent_calls = {}, {}, collections.Counter()
         self.launches = None
 
@@ -1420,27 +1470,35 @@ class PathCopies:
         from katacoffee_tpu_torch.ops.gather import gather_rows
         from katacoffee_tpu_torch.search import mcts
 
-        kept = self.kept = (mcts._simulate_once, mcts.gather_rows, mcts._descend_interior)
+        kept = self.kept = (mcts._simulate_once, mcts.gather_rows, mcts._descend_interior, mcts._simulate_round)
 
         def simulate(*args, **kwargs):
             self.sims += 1
             return kept[0](*args, **kwargs)
 
+        def simulate_round(*args, **kwargs):
+            self.rounds += 1
+            return kept[3](*args, **kwargs)
+
         def copy_gather(table, idx):
             self.gathers[tuple(table.shape) + (idx.shape[1],)] = (table.clone(), idx.clone())
             return kept[1](table, idx)
 
-        def copy_descent(c, sp, tree, node, depth, active, path, acts, scratch, avoid_until=None):
+        def copy_descent(c, sp, tree, node, depth, active, path, acts, scratch, avoid_until=None, leak_u=None,
+                         acts_f=None):
             B = node.shape[0]
             self.descent_calls[B] += 1
             if self.descent_calls[B] % self.snapshot_every == 0:
                 copy = mcts.Tree(*(x.map(torch.clone) if isinstance(x, tuple) else x.clone() for x in tree))
                 self.descents.setdefault(B, []).append((self.descent_calls[B], sp, copy, tuple(
                     x.clone() for x in (node, depth, active, path, acts)) + (mcts.LevelScratch(*(
-                        x.clone() for x in scratch)),), None if avoid_until is None else avoid_until.clone()))
-            return kept[2](c, sp, tree, node, depth, active, path, acts, scratch, avoid_until)
+                        x.clone() for x in scratch)),), None if avoid_until is None else avoid_until.clone(), {
+                        k: None if v is None else v.clone() for k, v in (("leak_u", leak_u), ("acts_f", acts_f))}))
+            return kept[2](c, sp, tree, node, depth, active, path, acts, scratch, avoid_until, leak_u=leak_u,
+                           acts_f=acts_f)
 
         mcts._simulate_once, mcts.gather_rows, mcts._descend_interior = simulate, copy_gather, copy_descent
+        mcts._simulate_round = simulate_round
         gather_rows.launches = descend_interior.launches = 0
         return self
 
@@ -1450,15 +1508,16 @@ class PathCopies:
         from katacoffee_tpu_torch.search import mcts
 
         self.launches = {"gather_rows": gather_rows.launches, "descend_interior": descend_interior.launches}
-        mcts._simulate_once, mcts.gather_rows, mcts._descend_interior = self.kept
+        mcts._simulate_once, mcts.gather_rows, mcts._descend_interior, mcts._simulate_round = self.kept
         return False
 
     def check_launches(self, label: str, main_width: int) -> None:
-        """One descent launch per simulation run, some gathers, and a copy
-        of the descent at every batch width it ran at."""
-        if self.launches["descend_interior"] != self.sims:
+        """One descent launch per simulation or round of K playouts run,
+        some gathers, and a copy of the descent at every batch width it ran
+        at."""
+        if self.launches["descend_interior"] != self.sims + self.rounds:
             raise AssertionError(f"{label}: descend_interior launched {self.launches['descend_interior']} times, "
-                                 f"not once per simulation run ({self.sims})")
+                                 f"not once per simulation or round run ({self.sims} + {self.rounds})")
         if self.launches["gather_rows"] == 0:
             raise AssertionError(f"{label}: gather_rows was not launched")
         if set(self.descents) != set(self.descent_calls) or main_width not in self.descents:
@@ -1474,8 +1533,8 @@ class PathCopies:
         self.gathers.clear()
         descent_timings = {}
         for B, copies in sorted(self.descents.items(), reverse=True):
-            checked = [check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, False, avoid)
-                       for n, sp, tree, inputs, avoid in copies]
+            checked = [check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, False, avoid, **extra)
+                       for n, sp, tree, inputs, avoid, extra in copies]
             log(f"{label} B={B}: descent kernel == plain on the path's own tree at launches "
                 f"{[c[0] for c in copies]}: games descending {[c['games'] for c in checked]}, levels "
                 f"{[c['timed_levels'] for c in checked]}, catch-ups {[c['caught'] for c in checked]}, near-tie act "
@@ -1484,8 +1543,9 @@ class PathCopies:
             if checked[best]["timed_levels"] == 0:
                 raise AssertionError(f"{label} B={B}: no copied descent went below the root, so the kernel is not "
                                      f"checked")
-            n, sp, tree, inputs, avoid = copies[best]
-            descent_timings[B] = check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, True, avoid)
+            n, sp, tree, inputs, avoid, extra = copies[best]
+            descent_timings[B] = check_path_descent(f"{label} B={B} launch {n}", cfg, sp, tree, inputs, True, avoid,
+                                                    **extra)
             descent_timings[B].update(
                 launch=n, flips=sum(c["flips"] for c in checked), games=sum(c["games"] for c in checked),
                 levels_compared=sum(c["timed_levels"] for c in checked),
@@ -1497,7 +1557,7 @@ class PathCopies:
         return {"gather": gather_timings, "gather_max_abs_err": gather_err, "descent": descent_timings}
 
 
-def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=16, rows_moves=16, snapshot_every=100):
+def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=8, rows_moves=16, snapshot_every=100):
     """The selfplay command: `command.selfplay.main`, in this process, on
     output directories under `root` (a temporary directory outside the repo
     that the caller removes) whose models/ links
@@ -1516,7 +1576,8 @@ def phase_selfplay_command(dev, cfg, root, batch=256, visits=600, rows_visits=16
           searches' lanes); after the run each kernel is held against its
           plain version on every copy, and timed on the gathers' and, for
           each width, on the descent copy with the most levels;
-      (b) 16 visits, 2 segments of 16 moves in one flush window, twice with
+      (b) 8 visits (16 until phase 15 met a slow host), 2 segments of 16
+          moves in one flush window, twice with
           the same seed: games end, every shard reads back through the
           port's reader and rows_to_batch with weights > 0, policy targets
           summing to 1 (float16), board cells in {0, 1, 2} and the player
@@ -1864,12 +1925,12 @@ GATE_CFG = "configs/gatekeeper.cfg"
 CHAMPION_DIR = "artifacts/flagship_b6c96/models/run-s4800"
 
 
-def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=5, visits=32):
+def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=5, visits=16):
     """The gatekeeper, the main path since the gatekeeper was ported:
     `command.gatekeeper.main` in this process with configs/gatekeeper.cfg
     (200 games, requiredCandidateWinProp 0.5, seed 0), its 150 visits cut to
-    `visits` by an override (64 until the script met a slow host, 150 until
-    the contribution bus's phase came),
+    `visits` by an override (32 until phase 15 came, 64 until the script met
+    a slow host, 150 until the contribution bus's phase came),
     on a base dir under `root` holding copies of run-s4800 as the champion
     in models/ and run-s5200 as the candidate in modelstobetested/, both
     b6c96 bf16 on the card, under for_gatekeeper(). With `PathCopies`
@@ -1963,7 +2024,7 @@ def phase_gatekeeper(dev, cfg, root, snapshot_every=100, profile_sims=5, visits=
             "sims": copies.sims, **checked, "gather_shape": next(iter(checked["gather"])), "profile": prof}
 
 
-def phase_gate_card_vs_cpu(dev, cfg, games=4, visits=16):
+def phase_gate_card_vs_cpu(dev, cfg, games=4, visits=8):
     """The card against the CPU: a float32 gating match (run-s5200 against
     run-s4800, for_gatekeeper()) of `games` games at `visits` visits with
     the same injected Gumbel draws on both. The move records must be equal;
@@ -2035,7 +2096,7 @@ def phase_gate_card_vs_cpu(dev, cfg, games=4, visits=16):
     return {"games": games, "parted": len(parted), "card_s": tk, "cpu_s": tc}
 
 
-def phase_loop(dev, cfg, root, rows=1000, batch=64, visits=16, moves=6, steps=20, gate_games=16, gate_visits=8):
+def phase_loop(dev, cfg, root, rows=1000, batch=64, visits=8, moves=6, steps=20, gate_games=16, gate_visits=8):
     """One cycle of `command.loop.run_loop` at reduced depth on a base dir
     under `root` whose models/ holds run-s5200 and whose train/run/ holds the
     flagship checkpoint (step 5200): selfplay B=`batch` at `visits` visits,
@@ -2089,14 +2150,15 @@ GTP_CFG = "configs/gtp_example.cfg"
 GTP_WINRATE_TOL = 2e-4  # tests/torch_parity.py assert_same_search: float32 sums of another order
 
 
-def gtp_engine(dev, dtype=None, visits=None, **kw):
+def gtp_engine(dev, dtype=None, visits=None, overrides=None, **kw):
     """The GTP engine as `python -m katacoffee_tpu_torch gtp -config GTP_CFG
     -model MODEL_DIR` builds it (command/gtp.py `main`, cli.py `_gtp`):
     configs/gtp_example.cfg over SearchParams.for_tests_v2(), run-s5200 on
     `dev` (bf16 trunk unless `dtype`), its evaluator and cached full-head
     forward; `visits` in place of the config's maxVisits, as
-    `-override-config maxVisits=...` gives it. Returns (GTPEngine,
-    SearchParams, GameConfig, maxVisits)."""
+    `-override-config maxVisits=...` gives it, and `overrides` ("k=v,...")
+    as the rest of -override-config. Returns (GTPEngine, SearchParams,
+    GameConfig, maxVisits)."""
     from katacoffee_tpu_torch.command.gtp import GTPEngine
     from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
     from katacoffee_tpu_torch.program.setup import load_game_config, load_search_params
@@ -2104,7 +2166,7 @@ def gtp_engine(dev, dtype=None, visits=None, **kw):
     from katacoffee_tpu_torch.search.params import SearchParams
     from katacoffee_tpu_torch.utils.config import ConfigParser
 
-    c = ConfigParser(GTP_CFG)
+    c = ConfigParser(GTP_CFG, overrides=overrides)
     sp = load_search_params(c, SearchParams.for_tests_v2())
     model, cfg, _ = load_exported_model(MODEL_DIR, dev, dtype)
     if load_game_config(c) != cfg:
@@ -2254,7 +2316,7 @@ def phase_gtp(dev, snapshot_every=200, profile_sims=5, visits=200, ponder_visits
     engine.reuse_enabled = False
 
     checked = copies.check("gtp (b)", cfg)
-    n, dsp, tree, inputs, _ = deepest
+    n, dsp, tree, inputs, _, _ = deepest
     B, _, A = tree.prior.shape
     rng = np.random.default_rng(5)
     until = rng.integers(2, 8, (B, 2, A)) * (rng.random((B, 2, A)) < 0.4)
@@ -3460,6 +3522,173 @@ def profile_searches(dev, cfg, reused_tree, batch=512, sims=5, pairs=2):
     return out
 
 
+def phase_search_threads(dev, batch=64, visits=200, threads=(2, 4), snapshot_every=25, leak=0.1, cpu_batch=8,
+                         cpu_visits=64, gtp_visits=200, gtp_threads=4):
+    """Phase 15, K playouts a round (numSearchThreads = K), the catch-up
+    leak and the gaussian evaluator, this slice's main path, at the width of
+    b6c96 run-s5200 bf16. (a) `for_selfplay()` at B=64, 200 visits, K = 1
+    and each of `threads` on the same roots: a fresh search, then one
+    reused move (the most visited child of each game), inside `PathCopies`
+    (launch counts set to 0 before, read after, every 25th descent launch
+    of each row count copied): rounds, wall, root visits/s and launches;
+    one descent launch a round and one root gather a search; then the leak
+    at `leak` with K = 1 and K = 2, the same way. (b) Each kernel held to
+    its plain version on the copies of (a) and timed, K = 1 and the rows of
+    B * K; then, on the deepest copy of each run, its edges of two or more
+    visits one visit behind their children (so that descents stop at
+    catch-ups), with the leak at `leak` on injected draws. (c) A float32
+    K = 2 `for_selfplay()` search at B=8, 64 visits, on the card and the CPU
+    with the same injected root draws. (d) One genmove of the GTP engine
+    at 200 visits with numSearchThreads = 4 from -override-config through
+    `load_search_params`, and a B=64 200-visit search under
+    `gaussian_prior_eval_fn`, each with its launches counted."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.game.board import GameConfig, step
+    from katacoffee_tpu_torch.game.symmetry import num_symmetries
+    from katacoffee_tpu_torch.ops.descend import descend_interior
+    from katacoffee_tpu_torch.ops.gather import gather_rows
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+
+    cfg = GameConfig(5, 5, 4)
+    model = load_exported_model(MODEL_DIR, dev)[0]
+    ev = mcts.make_nn_eval_fn(cfg, model)
+    roots = random_positions(cfg, batch, seed=15)
+    runs, checks, deepest = {}, {}, {}
+    for K, p in [(k, 0.0) for k in (1, *threads)] + [(1, leak), (2, leak)]:
+        label = f"K={K}" + (f" leak {p}" if p else "")
+        sp = dataclasses.replace(SearchParams.for_selfplay(), numSearchThreads=K, graphSearchCatchUpLeakProb=p)
+        g = torch.Generator(device=dev).manual_seed(15)
+        with PathCopies(snapshot_every) as copies:
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            tree, diag = mcts.run_search(cfg, sp, ev, roots, visits, device=dev, generator=g, with_diag=True)
+            torch.cuda.synchronize()
+            fresh_s = time.monotonic() - t
+            fresh = {"descend_interior": descend_interior.launches, "gather_rows": gather_rows.launches}
+            acts = mcts.root_visit_counts(tree).argmax(-1)
+            moved = step(cfg, roots.map(lambda x: x.to(dev)), acts)
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            reused, rdiag = mcts.run_search(cfg, sp, ev, moved, visits, device=dev, generator=g, reuse_tree=tree,
+                                            reuse_actions=acts, reuse_ok=~moved.done, with_diag=True)
+            torch.cuda.synchronize()
+            reused_s = time.monotonic() - t
+        launches = copies.launches
+        run = {"K": K, "leak": p, "fresh_rounds": diag["rounds"], "fresh_s": fresh_s,
+               "fresh_root_vps": batch * visits / fresh_s, "reused_rounds": rdiag["rounds"], "reused_s": reused_s,
+               "reused_root_vps": float((reused.stats[:, 0, mcts.S_VISITS] - rdiag["start_visits"]).sum()) / reused_s,
+               "launches": launches, "fresh_launches": fresh}
+        log(f"threads (a) {label}: fresh search {diag['rounds']} rounds {fresh_s:.3f} s "
+            f"({run['fresh_root_vps']:.1f} root visits/s), reused move {rdiag['rounds']} rounds {reused_s:.3f} s "
+            f"({run['reused_root_vps']:.1f} root visits/s); launches descend_interior {fresh['descend_interior']} + "
+            f"{launches['descend_interior'] - fresh['descend_interior']}, gather_rows {fresh['gather_rows']} + "
+            f"{launches['gather_rows'] - fresh['gather_rows']}")
+        rounds = diag["rounds"] + rdiag["rounds"]
+        if diag["rounds"] != -(-visits // K) or launches["descend_interior"] != rounds or fresh[
+                "descend_interior"] != diag["rounds"] or copies.sims + copies.rounds != rounds:
+            raise AssertionError(f"threads (a) {label}: not one descent launch a round ({rounds} rounds)")
+        if fresh["gather_rows"] != 1 or launches["gather_rows"] != 2:
+            raise AssertionError(f"threads (a) {label}: not one root gather a search")
+        for t_ in (tree, reused):
+            if not torch.isfinite(t_.stats).all() or not (t_.stats[:, 0, mcts.S_VISITS] == visits + 1).all():
+                raise AssertionError(f"threads (a) {label}: a root without {visits + 1} visits or a non-finite row")
+            pt = mcts.policy_target(t_, sp)[~t_.is_terminal[:, 0]]
+            if not torch.allclose(pt.sum(-1), torch.ones((), device=dev), atol=1e-5):
+                raise AssertionError(f"threads (a) {label}: a live root's policy target does not sum to 1")
+        copies.check_launches(f"threads {label}", batch * K)
+        deepest[label] = max(copies.descents[batch * K], key=lambda c: int(c[2].node_count.sum()))
+        checks[label] = copies.check(f"threads (b) {label}", cfg)
+        runs[label] = run
+
+    # (b) the leak on trees that stop at catch-ups
+    u_gen = torch.Generator().manual_seed(16)
+    leak_checks = {}
+    for label in [f"K={k}" for k in (1, *threads)]:
+        n, dsp, tree, inputs, _, extra = deepest[label]
+        behind = tree.edge_visits >= 2
+        tree.edge_visits.sub_(behind.to(torch.int32))
+        lsp = dataclasses.replace(dsp, graphSearchCatchUpLeakProb=leak)
+        rows, D = inputs[0].shape[0], inputs[5].child_c.shape[1]
+        u = torch.rand((rows, D + 1), generator=u_gen).to(dev)
+        closed = check_path_descent(f"threads (b) {label} launch {n}, lagging edges", cfg, dsp, tree, inputs, False,
+                                    acts_f=extra["acts_f"])
+        leak_checks[label] = check_path_descent(f"threads (b) {label} launch {n}, lagging edges, leak {leak}", cfg,
+                                                lsp, tree, inputs, True, leak_u=u, acts_f=extra["acts_f"])
+        leak_checks[label]["levels_without_leak"] = closed["timed_levels"]
+        leak_checks[label]["caught_without_leak"] = closed["caught"]
+        log(f"threads (b) {label}: catch-ups {closed['caught']} without the leak, {leak_checks[label]['caught']} "
+            f"with it; levels {closed['timed_levels']} -> {leak_checks[label]['timed_levels']}")
+    if all(c["timed_levels"] == c["levels_without_leak"] for c in leak_checks.values()):
+        raise AssertionError("threads (b): no descent stopped at a catch-up and leaked through it")
+    for label, c in checks.items():
+        for rows, d in c["descent"].items():
+            log(f"threads (b) {label} rows {rows}: kernel == plain, {d['flips']} near-tie flips, "
+                f"{d['ms'] * 1e3:.2f} us a launch ({d['max_levels']} levels), plain {d['plain_ms'] * 1e3:.1f} us")
+
+    # (c) card against CPU, float32, K = 2
+    sp2 = dataclasses.replace(SearchParams.for_selfplay(), numSearchThreads=2)
+    cpu_roots = random_positions(cfg, cpu_batch, seed=17)
+    g = torch.Generator().manual_seed(17)
+    A = cfg.policy_size
+    draws = mcts.RootDraws(
+        syms=torch.argsort(torch.rand((cpu_batch, num_symmetries(cfg)), generator=g), dim=-1)[:, :4],
+        gamma=torch._standard_gamma(torch.full((cpu_batch, A), 0.1083), generator=g))
+    found = []
+    for d in (dev, torch.device("cpu")):
+        net32 = load_exported_model(MODEL_DIR, d, torch.float32)[0]
+        tree = mcts.run_search(cfg, sp2, mcts.make_nn_eval_fn(cfg, net32), cpu_roots, cpu_visits, device=d,
+                               draws=draws)
+        found.append((mcts.root_visit_counts(tree).cpu(), {k: v.cpu() for k, v in mcts.root_values(tree).items()}))
+    (vk, rk), (vc, rc) = found
+    same = (vk == vc).all(-1)
+    tv = 0.5 * (vk.float() / cpu_visits - vc.float() / cpu_visits).abs().sum(-1).max().item()
+    value_diff = max([(rk[k][same] - rc[k][same]).abs().max().item() for k in rk
+                      if rk[k].is_floating_point() and same.any()] or [0.0])
+    log(f"threads (c): float32 K=2 B={cpu_batch} {cpu_visits} visits, card and CPU, same draws: {int(same.sum())} of "
+        f"{cpu_batch} games with identical root visits, max total variation {tv:.4f}; root values of those within "
+        f"{value_diff:.3g}")
+    if tv > TV_MAX or value_diff > GTP_WINRATE_TOL:
+        raise AssertionError("threads (c): card and CPU part beyond the contract")
+
+    # (d) the GTP engine with numSearchThreads = 4, and the gaussian evaluator
+    eng, gsp, _, _ = gtp_engine(dev, visits=gtp_visits, overrides=f"numSearchThreads={gtp_threads}")
+    if gsp.numSearchThreads != gtp_threads:
+        raise AssertionError(f"threads (d): load_search_params read numSearchThreads {gsp.numSearchThreads}")
+    with PathCopies(10**9) as gcopies:
+        session = gtp_session(eng, ["clear_board", "genmove b"])
+    gtp_s = session[-1][2]
+    if not session[-1][1].startswith("= ") or gcopies.launches["descend_interior"] != gcopies.rounds or \
+            gcopies.rounds != -(-gtp_visits // gtp_threads):
+        raise AssertionError(f"threads (d): genmove {session[-1][1]!r}, {gcopies.rounds} rounds, "
+                             f"{gcopies.launches} launches")
+    gauss = mcts.gaussian_prior_eval_fn(cfg, generator=torch.Generator(device=dev).manual_seed(18))
+    with PathCopies(10**9) as gauss_copies:
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        gtree = mcts.run_search(cfg, SearchParams(), gauss, roots, visits, device=dev)
+        torch.cuda.synchronize()
+        gauss_s = time.monotonic() - t
+    if not torch.isfinite(gtree.stats).all() or not (gtree.stats[:, 0, mcts.S_VISITS] == visits + 1).all() or \
+            gauss_copies.launches["descend_interior"] != visits:
+        raise AssertionError("threads (d): the gaussian search is not whole")
+    log(f"threads (d): gtp genmove at {gtp_visits} visits, numSearchThreads {gsp.numSearchThreads}: "
+        f"{session[-1][1]!r} in {gtp_s:.3f} s, {gcopies.rounds} rounds, descend_interior "
+        f"{gcopies.launches['descend_interior']}; gaussian_prior_eval_fn B={batch} {visits} visits {gauss_s:.3f} s, "
+        f"descend_interior {gauss_copies.launches['descend_interior']}")
+    return {"runs": runs, "checks": checks, "leak_checks": leak_checks,
+            "card_vs_cpu": {"identical_games": int(same.sum()), "games": cpu_batch, "max_tv": tv,
+                            "max_value_diff": value_diff},
+            "gtp": {"visits": gtp_visits, "threads": gtp_threads, "seconds": gtp_s, "rounds": gcopies.rounds,
+                    "launches": gcopies.launches, "reply": session[-1][1]},
+            "gaussian": {"seconds": gauss_s, "launches": gauss_copies.launches}}
+
+
 def gather_row(t: dict, floor: dict) -> dict:
     """A gather timing with the launch floor as the gather is timed (a CUDA
     graph)."""
@@ -3560,8 +3789,7 @@ def main() -> int:
             "the reference net")
         book = phase_book(dev)
 
-        log("phase 12: the contribution bus (this slice's main path), its kernels' inputs, a rating task, the "
-            "contribute command, two ranks")
+        log("phase 12: the contribution bus, its kernels' inputs, a rating task, the contribute command, two ranks")
         t = time.monotonic()
         contribute = phase_contribute(dev, cfg, work, os.path.join(work, "trainer", "shuffleddata"))
         contribute["phase_s"] = time.monotonic() - t
@@ -3574,6 +3802,12 @@ def main() -> int:
     log("per playout: cudaLaunchKernel " + ", ".join(
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
+
+    log("phase 15: K playouts a round, the catch-up leak and the gaussian evaluator (this slice's main path), "
+        "their kernels' inputs, card against CPU, the GTP engine with numSearchThreads = 4")
+    t = time.monotonic()
+    threads = phase_search_threads(dev)
+    threads["phase_s"] = time.monotonic() - t
 
     # the kernels line reports the main path (phase 12 (a), the contribute
     # cycle): its launches, and each kernel's check and times on the inputs
@@ -3616,7 +3850,10 @@ def main() -> int:
             **{f"gatekeeper {list(s)}": gather_row(v, floor) for s, v in gate["gather"].items()},
             **{f"selfplay command {list(s)}": gather_row(v, floor) for s, v in command["gather"].items()},
             **{f"random inputs {list(s)}": gather_row(v, floor) for s, v in kern["timings"].items()},
+            **{f"threads {label} {list(s)}": gather_row(v, floor) for label, c in threads["checks"].items()
+               for s, v in c["gather"].items()},
         },
+        "launches_threads_path": {label: r["launches"]["gather_rows"] for label, r in threads["runs"].items()},
     }
     # the deepest copied tree of the contribute cycle (B=64)
     width = contribute["batch"]
@@ -3663,6 +3900,7 @@ def main() -> int:
             **{f"gatekeeper B={b}": descent_row(v, floor) for b, v in gate["descent"].items()},
             **{f"selfplay command B={b}": descent_row(v, floor) for b, v in command["descent"].items()},
             **{f"grown {k} tree B=512": descent_row(v, floor) for k, v in desc["timed"].items()},
+            "threads K=1 B=64": descent_row(threads["checks"]["K=1"]["descent"][64], floor),
         },
         "simulations_run_segment_path": selfplay["sims"],
         "launches_default_path": search["launches"]["descend_interior"],
@@ -3687,6 +3925,11 @@ def main() -> int:
     rounds = ", ".join(f"{r['lanes']} lanes at B={r['batch']} {r['wall_s']:.3f} s ({r['root_vps']:.1f} root visits/s, "
                        f"{r['outside_s']:.4f} s outside run_search)" for r in book["rounds"])
     bus, ranks = contribute, contribute["ranks"]
+    log("phase 15 (K playouts a round, B=64, 200 visits, for_selfplay): " + "; ".join(
+        f"{label} fresh {r['fresh_rounds']} rounds {r['fresh_s']:.3f} s ({r['fresh_root_vps']:.1f} root visits/s), "
+        f"reused {r['reused_rounds']} rounds {r['reused_s']:.3f} s ({r['reused_root_vps']:.1f} root visits/s)"
+        for label, r in threads["runs"].items()) + f"; gtp genmove K={threads['gtp']['threads']} "
+        f"{threads['gtp']['seconds']:.3f} s; phase 15 {threads['phase_s']:.1f} s")
     log(f"phase 14: done; contribute cycle {bus['wall_s']:.3f} s, {bus['rows']} rows ({bus['rows_per_s']:.1f} rows/s, "
         f"{bus['upload_s']:.3f} s uploading), rating task {bus['rating']['seconds']:.3f} s, the command "
         f"{bus['command']['seconds']:.1f} s, two ranks over {ranks['backend']} {ranks['seconds']:.1f} s, phase 12 "
@@ -3708,8 +3951,29 @@ def main() -> int:
         f"the daemon's own work in the rows runs " + ", ".join(f"{x:.2%}" for x in own) + " of the wall; "
         f"randomized evaluator {ab['randomized_ms'] / ab['plain_ms'] - 1:+.2%} on a fresh search; trainer "
         f"{trainer['ms_per_step_median']:.3f} ms a b6c96 B=256 step, {trainer['samples_per_s']:.1f} samples/s")
+    # phase 15's instantiations of the descent: the rows of a round and the
+    # leak, each with the launches and the timed copy of its own run
+    threads_entries = []
+    for label, name in (("K=2", "descend_interior rows K=2"), ("K=4", "descend_interior rows K=4"),
+                        ("K=1 leak 0.1", "descend_interior leak"), ("K=2 leak 0.1", "descend_interior rows K=2 leak")):
+        run, checked = threads["runs"][label], threads["checks"][label]["descent"]
+        rows = max(checked)
+        t = descent_row(checked[rows], floor)
+        threads_entries.append({
+            "name": name, "route": "cuda", "source": "katacoffee_tpu_torch/ops/descend_kernel.cu",
+            "replaces": "katacoffee_tpu/ops/gather.py:39",
+            "also_replaces": "katacoffee_tpu/search/mcts.py:1785" if run["K"] > 1 else "katacoffee_tpu/search/mcts.py:1209",
+            "launches": run["launches"]["descend_interior"], "rounds_run": run["fresh_rounds"] + run["reused_rounds"],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "floor_ms": t["floor_ms"], "max_levels": t["max_levels"],
+            "us_per_level": t["us_per_level"], "shape": t["shape"], "rows": rows, "near_tie_flips": t["flips"],
+        })
     log("kernel rows (device us a call):")
     log_kernel_rows(gather_entry, descend_entry)
+    for e in threads_entries:
+        log(f"  {e['name']} ({e['rows']} rows): {e['ms'] * 1e3:.2f} us, bound {e['bound_ms'] * 1e3:.2f}, floor "
+            f"{e['floor_ms'] * 1e3:.2f}, plain {e['plain_ms'] * 1e3:.2f}, deepest row {e['max_levels']} levels, "
+            f"launches {e['launches']}")
     print(card_line(), flush=True)
     print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"gtp": {k: v for k, v in gtp.items() if k not in ("gather", "descent")}}, default=str),
@@ -3722,7 +3986,9 @@ def main() -> int:
           flush=True)
     print(json.dumps({"contribute": {k: v for k, v in contribute.items() if k not in ("gather", "descent")}},
                      default=str), flush=True)
-    print(json.dumps({"kernels": [gather_entry, descend_entry]}), flush=True)
+    print(json.dumps({"search_threads": {k: v for k, v in threads.items() if k not in ("checks",)}}, default=str),
+          flush=True)
+    print(json.dumps({"kernels": [gather_entry, descend_entry, *threads_entries]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -419,7 +419,8 @@ class AnalysisEngine:
                 chunk = max(8, int(float(report_every) * vps))
                 target = min(done + chunk, max_visits + 1)
                 t0 = time.monotonic()
-                tree = mcts.continue_search(cfg, sp_q, ev, tree, cap, float(target), until_t)
+                tree = mcts.continue_search(cfg, sp_q, ev, tree, cap, float(target), until_t,
+                                            generator=self.generator)
                 self._sync()
                 dt = max(time.monotonic() - t0, 1e-6)
                 vps = 0.7 * vps + 0.3 * ((target - done) / dt)

@@ -14,7 +14,11 @@ padded to 16 bytes: `mcts._cand_table_i16`) and carries each next node's
 fields from the chosen lane, so a level waits on two global round trips.
 Two lanes follow the search options, each behind a flag: the policy ranks
 into the scratch's `rank_c` (useNoisePruning) and the `avoid_until` mask
-(`forbid_c`).
+(`forbid_c`). Two more follow the call: the catch-up leak, whose uniform
+draws `leak_u` [R, D + 1] come in as a tensor, and the rows of a round of K
+playouts a game (numSearchThreads = K, `mcts._simulate_round`): R = B * K
+rows, row r of game r // K, each recording its flat actions in `acts_f` and
+counting no edge visit (the caller adds them, `mcts._count_path_edges`).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ _FPU_PARENT, _FPU_VISITED_POLICY, _FPU_PARENT_WEIGHT = range(3)
 # tensors kc_descend_interior takes.
 _NUM_FLOATS = 16
 _NUM_INTS = 6
-_NUM_POINTERS = 25
+_NUM_POINTERS = 27
 
 
 def table_bytes(area: int, lanes: int) -> int:
@@ -114,7 +118,7 @@ def load_kernel() -> ctypes.CDLL:
             f"the wrapper passes {want}"
         )
     lib.kc_descend_interior.argtypes = (
-        [ctypes.c_void_p] * _NUM_POINTERS + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * _NUM_POINTERS + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 3
     )
     lib.kc_descend_interior.restype = ctypes.c_int
     lib.kc_descend_error_string.argtypes = [ctypes.c_int]
@@ -138,25 +142,32 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None
         raise ValueError(f"descend_interior: {name} must be contiguous")
 
 
-def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, acts, scratch, avoid_until=None):
+def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, acts, scratch, avoid_until=None,
+                     leak_u=None, acts_f=None):
     """One launch of the fused interior descent; returns (leaf, leaf_depth)
-    [B] int64 and `caught` [B] bool (stopped by a graph-search catch-up) and
-    updates `tree.edge_visits`, `path`, `acts` and `scratch` in place, as
-    `mcts._descend_interior_plain` does (with `avoid_until` [B, 2, A] int32
-    masking lanes, and under useNoisePruning the ranks of `tree.policy_rank`
-    [B, N, A] stored in `scratch.rank_c`).
+    [R] int64 and `caught` [R] bool (stopped by a graph-search catch-up) and
+    updates `path`, `acts`, `scratch` and `tree.edge_visits` or `acts_f` in
+    place, as `mcts._descend_interior_plain` does (with `avoid_until` [B, 2,
+    A] int32 masking lanes, under useNoisePruning the ranks of
+    `tree.policy_rank` [B, N, A] stored in `scratch.rank_c`, and with
+    `leak_u` [R, D + 1] float32 the catch-up leak's draws).
 
-    `cand` is the candidate table [area + 1, 5, C] as int16, flattened and
-    -1 padded to `table_bytes(area, C)` (`mcts._cand_table_i16`); `tree` a
-    search Tree, `scratch` its LevelScratch [B, D, C, ...]. Every tensor
-    must lie on one CUDA device, contiguous, with the Tree's dtypes; anything
-    else, a table above MAX_TABLE_BYTES, a catch-up leak probability (it
-    draws inside the loop), or a kernel that fails to build or launch,
-    raises. Counted in `descend_interior.launches`."""
-    if sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0:
-        raise ValueError("descend_interior: graphSearchCatchUpLeakProb > 0 is not taken")
+    The rows R are the B games, or with `acts_f` [R, D + 1] int64 the B * K
+    rows of a round of K playouts a game (row r of game r // K), which
+    count no edge visit. `cand` is the candidate table [area + 1, 5, C] as
+    int16, flattened and -1 padded to `table_bytes(area, C)`
+    (`mcts._cand_table_i16`); `tree` a search Tree, `scratch` a LevelScratch
+    [R, D, C, ...]. Every tensor must lie on one CUDA device, contiguous,
+    with the Tree's dtypes; anything else, a table above MAX_TABLE_BYTES, or
+    a kernel that fails to build or launch, raises. Counted in
+    `descend_interior.launches`."""
     B, N, A = tree.children.shape
+    R = node.shape[0]
     D, C = scratch.child_c.shape[1:]
+    if acts_f is None and R != B or R % B:
+        raise ValueError(f"descend_interior: {R} rows for {B} games" + ("" if acts_f is None else
+                         " (a round's rows are K per game)"))
+    K = R // B
     if not 1 <= C <= MAX_LANES:
         raise ValueError(f"descend_interior: {C} candidate lanes, the kernel takes 1..{MAX_LANES}")
     area = A // 4
@@ -164,6 +175,10 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
     if nbytes > MAX_TABLE_BYTES:
         raise ValueError(f"descend_interior: a candidate table of {nbytes} bytes does not fit the "
                          f"{MAX_TABLE_BYTES} bytes of shared memory a block has")
+    leak = sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0
+    if leak != (leak_u is not None):
+        raise ValueError("descend_interior: leak_u is needed exactly where graphSearchCatchUpLeakProb > 0 under "
+                         "graph search")
     dummy = _dummy(tree.stats.device)
     rank = tree.policy_rank if sp.useNoisePruning else dummy
     avoid = avoid_until if avoid_until is not None else dummy
@@ -180,40 +195,46 @@ def descend_interior(sp, cand: torch.Tensor, tree, node, depth, active, path, ac
         ("to_move", tree.states.to_move, torch.int8, (B, N)),
         ("policy_rank", rank, torch.int32, (B, N, A) if sp.useNoisePruning else (1,)),
         ("avoid_until", avoid, torch.int32, (B, 2, A) if avoid_until is not None else (1,)),
-        ("node", node, torch.int64, (B,)),
-        ("depth", depth, torch.int64, (B,)),
-        ("active", active, torch.bool, (B,)),
-        ("path", path, torch.int64, (B, D + 1)),
-        ("acts", acts, torch.int64, (B, D + 1)),
-        ("cs_raw", scratch.cs_raw, torch.float32, (B, D, C, 8)),
-        ("prior_c", scratch.prior_c, torch.float32, (B, D, C)),
-        ("child_c", scratch.child_c, torch.int32, (B, D, C)),
-        ("ev_c", scratch.ev_c, torch.float32, (B, D, C)),
-        ("rank_c", scratch.rank_c, torch.float32, (B, D, C)),
+        ("leak_u", leak_u, torch.float32, (R, D + 1)),
+        ("node", node, torch.int64, (R,)),
+        ("depth", depth, torch.int64, (R,)),
+        ("active", active, torch.bool, (R,)),
+        ("path", path, torch.int64, (R, D + 1)),
+        ("acts", acts, torch.int64, (R, D + 1)),
+        ("acts_f", acts_f, torch.int64, (R, D + 1)),
+        ("cs_raw", scratch.cs_raw, torch.float32, (R, D, C, 8)),
+        ("prior_c", scratch.prior_c, torch.float32, (R, D, C)),
+        ("child_c", scratch.child_c, torch.int32, (R, D, C)),
+        ("ev_c", scratch.ev_c, torch.float32, (R, D, C)),
+        ("rank_c", scratch.rank_c, torch.float32, (R, D, C)),
     ]
-    for name, t, dtype, shape in args:
+    # a tensor left None (leak_u, acts_f) goes as a null pointer, which turns its flag off
+    given = [(name, t, dtype, shape) for name, t, dtype, shape in args if t is not None]
+    for name, t, dtype, shape in given:
         _check(name, t, dtype, shape)
     dev = tree.stats.device
-    if dev.type != "cuda" or any(t.device != dev for _, t, _, _ in args):
+    if dev.type != "cuda" or any(t.device != dev for _, t, _, _ in given):
         raise ValueError(
             "descend_interior: needs every tensor on one CUDA device, got "
-            + ", ".join(f"{name} on {t.device}" for name, t, _, _ in args)
+            + ", ".join(f"{name} on {t.device}" for name, t, _, _ in given)
         )
     if tree.stats.data_ptr() % 16 or scratch.cs_raw.data_ptr() % 16 or cand.data_ptr() % 16:
         raise ValueError("descend_interior: stats, cs_raw and cand must be 16-byte aligned")
     if dev.index != torch.cuda.current_device():
         # the kernel launches on the current device
         with torch.cuda.device(dev):
-            return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch, avoid_until)
-    leaf = torch.empty((B,), dtype=torch.int64, device=dev)
-    leaf_depth = torch.empty((B,), dtype=torch.int64, device=dev)
-    caught = torch.empty((B,), dtype=torch.bool, device=dev)
+            return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch, avoid_until, leak_u,
+                                    acts_f)
+    leaf = torch.empty((R,), dtype=torch.int64, device=dev)
+    leaf_depth = torch.empty((R,), dtype=torch.int64, device=dev)
+    caught = torch.empty((R,), dtype=torch.bool, device=dev)
     floats, ints = select_constants(sp, forbid=avoid_until is not None)
     lib = load_kernel()
+    pointers = [None if t is None else t.data_ptr() for _, t, _, _ in args]
     err = lib.kc_descend_interior(
-        *(t.data_ptr() for _, t, _, _ in args),
+        *pointers,
         leaf.data_ptr(), leaf_depth.data_ptr(), caught.data_ptr(),
-        B, N, A, C, D, area,
+        R, N, A, C, D, area, K, float(np.float32(sp.graphSearchCatchUpLeakProb)),
         floats.ctypes.data, ints.ctypes.data,
         torch.cuda.current_stream().cuda_stream,
     )

@@ -7,8 +7,9 @@
 // with them the per-level child-stats gather, the Pallas TPU kernel
 // `_gather_kernel` of katacoffee_tpu/ops/gather.py:39.
 //
-// One warp walks one game from the node after the root level down to its
-// leaf. Per level, lane l takes the candidate lanes c = l and c = l + 32 of
+// One warp walks one game (or, in a round of K playouts a game, one row of
+// B * K: see the rows flag below) from the node after the root level down
+// to its leaf. Per level, lane l takes the candidate lanes c = l and c = l + 32 of
 // the node's last-move line (C <= 63 lanes):
 //   * the candidate-table row cand[spot, dir, c], from shared memory;
 //   * the compact children / edge_visits / prior entries at cand;
@@ -30,10 +31,10 @@
 // steps to the child. It stops at a terminal node, a missing child, a
 // catch-up or depth == D.
 //
-// Two lanes of the search options, each compiled in by a flag of Select (the
-// launch picks the kernel instantiated for the two flags, so a lane that is
-// off costs nothing) and read from its own tensor only when on (else the
-// pointer may be a dummy):
+// Four template flags, the launch picking the kernel instantiated for them,
+// so a flag that is off costs nothing and its tensor is never read (its
+// pointer may be a dummy). Two follow lanes of the search options (flags of
+// Select):
 //   * rank (useNoisePruning): each lane stores float(policy_rank[b, node,
 //     cand]) into the scratch's rank_c, 1e6 on a padding lane, for the
 //     backup's prefix sums;
@@ -44,7 +45,22 @@
 //     >= 0 is left unforbidden (a warp vote), when the mask is ignored
 //     (`_avoid`, the JAX package's `keep`, search/mcts.py:764).
 // Both loads are in round trip (a) below, next to the compact entries, so
-// neither adds a dependent trip.
+// neither adds a dependent trip. Two follow the launch:
+//   * leak (graphSearchCatchUpLeakProb > 0, `_leaked`, the JAX package's
+//     search/mcts.py:1215-1219): a catch-up is let through where the row's
+//     uniform draw leak_u[row, depth] < leak_prob, float32 against float32;
+//     the draw is loaded with trip (a);
+//   * rows (numSearchThreads = K > 1, `_simulate_round`, :1785-1884): a warp
+//     walks one row of B * K, row r being playout r % K of game r / K. The
+//     tree's tensors are the game's, the inputs and outputs (node, depth,
+//     active, path, acts, scratch, leaf, caught) the row's. K rows of a game
+//     may pass one edge, and the JAX round reads a level's edge visits before
+//     any row of that level adds to them, so this mode writes no edge visit:
+//     lane 0 records the chosen lane's flat action in acts_f[depth] and the
+//     caller adds the visits after the launch in one integer scatter-add
+//     (`mcts._count_path_edges`). As Coffee's DAG is graded (a ply fills one
+//     spot), a node at depth d is read only at level d, so no row could have
+//     seen another level's adds either.
 //
 // Numerics: every operation is the plain torch version's, in its order, each
 // rounded to float32 (built with --fmad=false, IEEE division and square
@@ -86,8 +102,9 @@
 // and loading its entries with trip (b), to skip trip (a) on a hit, was
 // slower.
 // Only the first level pays one more trip, for the first node's fields. No
-// atomics and no re-read: a warp is the only writer of its game's tree, and
-// a path never repeats a node (each ply fills one more spot). A block holds
+// atomics and no re-read: with one row a game a warp is the only writer of
+// its game's tree, and a path never repeats a node (each ply fills one more
+// spot); with K rows a game (rows) no warp writes the tree. A block holds
 // 4 warps (games): of 1, 2 and 4 it was the best or within 1 % of the best
 // on every tree measured (tools/kernel_ab.py).
 //
@@ -125,7 +142,7 @@ struct Select {
 };
 constexpr int kNumFloats = 16;
 constexpr int kNumInts = 6;
-constexpr int kNumPointers = 25;  // kc_descend_interior's tensor arguments
+constexpr int kNumPointers = 27;  // kc_descend_interior's tensor arguments
 constexpr float kNoRank = 1e6f;   // rank_c on a padding lane
 // A block's shared memory on sm_90 (227 KB) less the mbarrier's 16 bytes.
 constexpr int kMaxTableBytes = 232432;
@@ -143,20 +160,25 @@ struct Args {
   const signed char* to_move;     // [B, N] int8, 1 or 2
   const int* policy_rank;         // [B, N, A] (rank_on)
   const int* avoid_until;         // [B, 2, A] (forbid_on)
-  const long long* node0;         // [B]
-  const long long* depth0;        // [B]
-  const unsigned char* active0;   // [B] bool
-  long long* path;                // [B, D + 1]
-  long long* acts;                // [B, D + 1]
-  float4* cs_raw;                 // [B, D, C, 8] as [B, D, C, 2] float4
-  float* prior_c;                 // [B, D, C]
-  int* child_c;                   // [B, D, C]
-  float* ev_c;                    // [B, D, C]
-  float* rank_c;                  // [B, D, C] (rank_on)
-  long long* leaf;                // [B]
-  long long* leaf_depth;          // [B]
-  unsigned char* caught;          // [B] bool, stopped by a catch-up
-  int b, n, a, c, d, area, table_bytes;
+  const float* leak_u;            // [R, D + 1] (leak)
+  // R rows: B, or B * K with K rows a game (rows)
+  const long long* node0;         // [R]
+  const long long* depth0;        // [R]
+  const unsigned char* active0;   // [R] bool
+  long long* path;                // [R, D + 1]
+  long long* acts;                // [R, D + 1]
+  long long* acts_f;              // [R, D + 1] (rows)
+  float4* cs_raw;                 // [R, D, C, 8] as [R, D, C, 2] float4
+  float* prior_c;                 // [R, D, C]
+  int* child_c;                   // [R, D, C]
+  float* ev_c;                    // [R, D, C]
+  float* rank_c;                  // [R, D, C] (rank_on)
+  long long* leaf;                // [R]
+  long long* leaf_depth;          // [R]
+  unsigned char* caught;          // [R] bool, stopped by a catch-up
+  int b, n, a, c, d, area, table_bytes;  // b: the rows R
+  int k;                                 // rows a game
+  float leak_prob;
 };
 
 // The candidate-table bytes the kernel copies: (area + 1) * 5 * C int16,
@@ -249,7 +271,7 @@ __device__ __forceinline__ unsigned score_key(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <bool kRank, bool kForbid>
+template <bool kRank, bool kForbid, bool kLeak, bool kRows>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 descend_interior_kernel(Args g, Select s) {
   __shared__ __align__(8) uint64_t bar;
@@ -268,7 +290,8 @@ descend_interior_kernel(Args g, Select s) {
   if (b >= g.b) return;
   const int C = g.c;
   const int width = min(32, 1 << (31 - __clz(C)));  // last_pow2(C), capped
-  const long long row0 = static_cast<long long>(b) * g.n;
+  const int game = kRows ? b / g.k : b;
+  const long long row0 = static_cast<long long>(game) * g.n;
   const long long prow = static_cast<long long>(b) * (g.d + 1);
   long long node = g.node0[b];
   long long depth = g.depth0[b];
@@ -301,7 +324,8 @@ descend_interior_kernel(Args g, Select s) {
 
     // round trip (a): the compact entries at the candidates, with the
     // rank and forbid lanes
-    const long long arow = (static_cast<long long>(b) * 2 + min(max(mover - 1, 0), 1)) * g.a;
+    const long long arow = (static_cast<long long>(game) * 2 + min(max(mover - 1, 0), 1)) * g.a;
+    const float u = kLeak ? __ldg(g.leak_u + prow + depth) : 0.0f;
     int cand[kSlots], child[kSlots], evi[kSlots];
     float pr[kSlots], rank[kSlots];
     bool forbid[kSlots];
@@ -452,13 +476,16 @@ descend_interior_kernel(Args g, Select s) {
     const bool next_term = __shfl_sync(kFull, static_cast<int>(sel_slot ? cterm[1] : cterm[0]), src) != 0;
 #undef KC_CHOSEN
 
-    // graph search's edge-visit catch-up (_want_catch)
-    const bool catch_up = s.graph && sel_child >= 0 && static_cast<float>(sel_evi) < sel_cvis - 0.5f;
+    // graph search's edge-visit catch-up (_want_catch), unless the row's
+    // draw leaks through it
+    const bool catch_up = s.graph && sel_child >= 0 && static_cast<float>(sel_evi) < sel_cvis - 0.5f &&
+                          !(kLeak && u < g.leak_prob);
     const bool move_on = sel_child >= 0 && !catch_up;
     if (lane == 0) {
       g.acts[prow + depth] = best_c;
+      if (kRows) g.acts_f[prow + depth] = sel_cand;
       if (move_on) {
-        g.edge_visits[bn * g.a + sel_cand] = sel_evi + 1;
+        if (!kRows) g.edge_visits[bn * g.a + sel_cand] = sel_evi + 1;
         g.path[prow + depth + 1] = sel_child;
       }
     }
@@ -488,26 +515,40 @@ descend_interior_kernel(Args g, Select s) {
 // kNumInts * 100 + kNumPointers.
 extern "C" int kc_descend_layout() { return kNumFloats * 10000 + kNumInts * 100 + kNumPointers; }
 
+using KernelFn = void (*)(Args, Select);
+
+template <bool kRank, bool kForbid>
+KernelFn pick_kernel(bool leak, bool rows) {
+  return leak ? (rows ? descend_interior_kernel<kRank, kForbid, true, true>
+                      : descend_interior_kernel<kRank, kForbid, true, false>)
+              : (rows ? descend_interior_kernel<kRank, kForbid, false, true>
+                      : descend_interior_kernel<kRank, kForbid, false, false>);
+}
+
 // Launches the descent on `stream`; returns the cudaError_t of the launch.
 // `cand` holds table_bytes(area, c) bytes, 16-byte aligned. `f` holds the
-// kNumFloats Select floats and `i` the kNumInts ints, in struct order.
+// kNumFloats Select floats and `i` the kNumInts ints, in struct order. `b`
+// is the number of rows and `k` the rows a game; a non-null `acts_f` sets
+// the rows flag (acts_f written, edge_visits not) and a non-null `leak_u`
+// the leak flag.
 extern "C" int kc_descend_interior(
     const void* last_spot, const void* last_dir, const void* terminal, const void* cand,
     const void* children, void* edge_visits, const void* prior, const void* stats,
     const void* self_stats, const void* to_move, const void* policy_rank, const void* avoid_until,
-    const void* node0, const void* depth0, const void* active0,
-    void* path, void* acts, void* cs_raw, void* prior_c, void* child_c, void* ev_c, void* rank_c,
-    void* leaf, void* leaf_depth, void* caught, int b, int n, int a, int c, int d, int area,
-    const float* f, const int* i, void* stream) {
+    const void* leak_u, const void* node0, const void* depth0, const void* active0,
+    void* path, void* acts, void* acts_f, void* cs_raw, void* prior_c, void* child_c, void* ev_c, void* rank_c,
+    void* leaf, void* leaf_depth, void* caught, int b, int n, int a, int c, int d, int area, int k,
+    float leak_prob, const float* f, const int* i, void* stream) {
   if (b == 0) return 0;
-  if (c < 1 || c >= 32 * kSlots || d < 1 || area < 1 ||
+  if (c < 1 || c >= 32 * kSlots || d < 1 || area < 1 || k < 1 || b % k != 0 ||
       reinterpret_cast<uintptr_t>(cand) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = table_bytes(area, c);
   if (bytes > kMaxTableBytes) return static_cast<int>(cudaErrorInvalidValue);
-  void (*kernel)(Args, Select) =
-      i[4] ? (i[5] ? descend_interior_kernel<true, true> : descend_interior_kernel<true, false>)
-           : (i[5] ? descend_interior_kernel<false, true> : descend_interior_kernel<false, false>);
+  const bool leak = leak_u != nullptr, rows = acts_f != nullptr;
+  if (!rows && k != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const KernelFn kernel = i[4] ? (i[5] ? pick_kernel<true, true>(leak, rows) : pick_kernel<true, false>(leak, rows))
+                               : (i[5] ? pick_kernel<false, true>(leak, rows) : pick_kernel<false, false>(leak, rows));
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -518,13 +559,13 @@ extern "C" int kc_descend_interior(
          static_cast<const float*>(prior), static_cast<const float4*>(stats),
          static_cast<const float*>(self_stats), static_cast<const signed char*>(to_move),
          static_cast<const int*>(policy_rank), static_cast<const int*>(avoid_until),
-         static_cast<const long long*>(node0),
+         static_cast<const float*>(leak_u), static_cast<const long long*>(node0),
          static_cast<const long long*>(depth0), static_cast<const unsigned char*>(active0),
-         static_cast<long long*>(path), static_cast<long long*>(acts),
+         static_cast<long long*>(path), static_cast<long long*>(acts), static_cast<long long*>(acts_f),
          static_cast<float4*>(cs_raw), static_cast<float*>(prior_c),
          static_cast<int*>(child_c), static_cast<float*>(ev_c), static_cast<float*>(rank_c),
          static_cast<long long*>(leaf), static_cast<long long*>(leaf_depth),
-         static_cast<unsigned char*>(caught), b, n, a, c, d, area, bytes};
+         static_cast<unsigned char*>(caught), b, n, a, c, d, area, bytes, k, leak_prob};
   Select s{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9], f[10],
            f[11], f[12], f[13], f[14], f[15], i[0], i[1], i[2], i[3], i[4], i[5]};
   static_assert(sizeof(Select) == (kNumFloats + kNumInts) * 4, "Select layout");

@@ -257,7 +257,8 @@ class Engine:
 
     def _continue(self, tree: mcts.Tree, cap: int, target: int, avoid_until=None) -> mcts.Tree:
         """Playouts until the root has `target` visits, at most `cap`."""
-        return mcts.continue_search(self.cfg, self.sp, self.eval_fn, tree, cap, float(target), avoid_until)
+        return mcts.continue_search(self.cfg, self.sp, self.eval_fn, tree, cap, float(target), avoid_until,
+                                     generator=self.generator)
 
     def _mask(self, a, dtype) -> torch.Tensor | None:
         return None if a is None else torch.from_numpy(np.asarray(a).astype(dtype)).to(self.device)[None]

@@ -37,19 +37,26 @@ What the port implements (file:line cites are the JAX package's):
     `Tree.policy_rank`, :2243), value-based downweighting, the root-noise
     weight subtraction and the subtree value bias (`_recompute_node`,
     :2205);
-  * one playout (`_simulate_once`, :1167) with its `active` mask, the whole
-    search on a fresh or a reused tree (`run_search`, :2371;
-    `advance_root`, :2643; `continue_search`, :2561) and the readouts
-    (`select_moves` with LCB and temperatures, :2976; `policy_target`,
-    :3057).
+  * one playout (`_simulate_once`, :1167) with its `active` mask and the
+    catch-up leak (graphSearchCatchUpLeakProb, :1209-1220), and K playouts a
+    round for numSearchThreads = K > 1 (`_simulate_round`, :1653): the root
+    selections sequenced over in-flight visits and virtual losses, the
+    interior levels of the B*K rows in one descent, one batched evaluation,
+    the expansions in playout order and the union backup; the whole search
+    on a fresh or a reused tree (`run_search`, :2371; `advance_root`, :2643;
+    `continue_search`, :2561) and the readouts (`select_moves` with LCB and
+    temperatures, :2976; `policy_target`, :3057);
+  * the evaluators `uniform_eval_fn` and `gaussian_prior_eval_fn` (:244).
 
-Randomness: a search draws only at its root (the sampled symmetries and the
-Dirichlet noise; `select_moves` draws its Gumbel noise) and in a
-symmetry-randomizing evaluator. Every draw comes
-from the `torch.Generator` the caller passes, on the search's device, or is
-passed in as a tensor (`RootDraws`, `gumbel`), as the tests do with the JAX
-package's draws. What the port does not implement raises NotImplementedError
-naming the setting (`_check_supported`).
+Randomness: a search draws at its root (the sampled symmetries and the
+Dirichlet noise; `select_moves` draws its Gumbel noise), once a playout or
+round for the catch-up leak, and in a symmetry-randomizing or gaussian
+evaluator. Every draw comes from the `torch.Generator` the caller passes, on
+the search's device, or is passed in (`RootDraws`, `draw_leak`, `gumbel`,
+`draw_syms`, `draw_normals`), as the tests do with the JAX package's draws;
+a drawing call with neither raises ValueError. `run_search` refuses
+numSearchThreads > 1 with maxPlayoutDepthProp < 1 under graph search, as the
+JAX package does.
 
 Rounding: the port rounds as torch does, not as XLA does (torch's
 `pow(x, 0.5)` is a square root, row sums add in another order), so a
@@ -156,21 +163,6 @@ class RootDraws(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Supported settings
-# ---------------------------------------------------------------------------
-
-
-def _check_supported(sp: SearchParams) -> None:
-    unsupported = {
-        "numSearchThreads>1": sp.numSearchThreads > 1,
-        "graphSearchCatchUpLeakProb>0": sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0,
-    }
-    for flag, on in unsupported.items():
-        if on:
-            raise NotImplementedError(f"katacoffee_tpu_torch search: {flag} is not ported yet")
-
-
-# ---------------------------------------------------------------------------
 # Evaluators
 # ---------------------------------------------------------------------------
 
@@ -199,6 +191,40 @@ def uniform_eval_fn(cfg: GameConfig) -> EvalFn:
         return EvalResult(
             policy=policy, utility=zeros, wl=zeros, draw=zeros,
             shortterm_error=torch.full_like(zeros, 0.5),
+        )
+
+    return fn
+
+
+def gaussian_prior_eval_fn(cfg: GameConfig, generator: torch.Generator | None = None,
+                           draw_normals: Callable[[int], tuple[torch.Tensor, torch.Tensor]] | None = None
+                           ) -> EvalFn:
+    """The reference's randomized debugSkipNeuralNet (JAX
+    `gaussian_prior_eval_fn`, mcts.py:244-276): per evaluation, policy
+    logits N(0, 1) at the first `area` (dir-NORTH) entries and 0 at the
+    others, softmaxed over the legal moves; utility softmax(0.2 N(0, 1)
+    [2])[0] - [1], with wl = utility, draw 0 and shortterm error 0.5 ln 2.
+    The normals, ([B, area], [B, 2]), come from `generator` (on the states'
+    device) or from `draw_normals(B)`, as the tests pass the JAX package's."""
+    if draw_normals is None:
+        generator = _need_generator(generator, "gaussian_prior_eval_fn")
+
+    def fn(states: GameState) -> EvalResult:
+        legal = legal_mask_flat(cfg, states)
+        b, a = legal.shape
+        dev = legal.device
+        if draw_normals is not None:
+            pol, val = (x.to(device=dev, dtype=torch.float32) for x in draw_normals(b))
+        else:
+            pol = torch.randn((b, cfg.area), generator=generator, device=dev)
+            val = torch.randn((b, 2), generator=generator, device=dev)
+        logits = torch.zeros((b, a), dtype=torch.float32, device=dev)
+        logits[:, : cfg.area] = pol
+        wl2 = _softmax(val * 0.2)
+        utility = wl2[:, 0] - wl2[:, 1]
+        return EvalResult(
+            policy=_masked_softmax(logits, legal), utility=utility, wl=utility,
+            draw=torch.zeros_like(utility), shortterm_error=torch.full_like(utility, 0.5 * math.log(2.0)),
         )
 
     return fn
@@ -595,7 +621,9 @@ def _selection_compact(sp: SearchParams, prior, cs: dict, node_stats, self_u, fo
 def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None, forbid=None) -> torch.Tensor:
     """Vectorized selectBestChildToDescend (searchexplorehelpers.cpp:304-451)
     for nodes [B]; `is_root` [B] bool; `forbid` [B, A] the avoided moves
-    (`_avoid`). Returns the chosen action [B]."""
+    (`_avoid`). `cs` may carry `force_w`, the child weights without the
+    virtual losses of a K round, for the forced-playout test (JAX
+    :1109-1118). Returns the chosen action [B]."""
     B = node.shape[0]
     bidx = torch.arange(B, device=node.device)
     prior = torch.where(is_root[:, None], tree.root_prior, tree.prior[bidx, node])
@@ -620,8 +648,9 @@ def _select_action(sp: SearchParams, tree: Tree, node, is_root, cs=None, forbid=
     selection = torch.where(prior < 0, -math.inf, selection)
     if sp.rootDesiredPerChildVisitsCoeff > 0.0:
         # root forced playouts (searchexplorehelpers.cpp:150)
+        fw = cs.get("force_w", child_w)
         forced = torch.sqrt(sp.rootDesiredPerChildVisitsCoeff * legal_prior * total_child_w[:, None])
-        force = has_child & (child_w < forced) & (child_w > 0.0) & is_root[:, None]
+        force = has_child & (fw < forced) & (fw > 0.0) & is_root[:, None]
         selection = torch.where(force, math.inf, selection)
     # rootHintLoc forced selection (searchexplorehelpers.cpp:155-168): the
     # hint move is forced while its weight (plus about one visit's worth)
@@ -650,7 +679,6 @@ def init_tree(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, root_states: G
     num_turns); `root_hint` [B] is each game's rootHintLoc action (-1 none);
     `root_avoid` [B, A] bool the root moves avoided (`_make_root_prior`).
     Root draws come from `draws` or `generator`."""
-    _check_supported(sp)
     draws = RootDraws() if draws is None else draws
     res = _root_eval(cfg, sp, eval_fn, root_states, generator, draws.syms)
     return _tree_from_root_eval(cfg, sp, root_states, res, max_nodes, generator=generator,
@@ -836,10 +864,11 @@ def make_level_scratch(cfg: GameConfig, batch: int, max_depth: int, device) -> L
 
 
 def _interior_level(cfg, sp: SearchParams, tree: Tree, bidx, node, depth=None, avoid_until=None):
-    """One interior level for nodes [B] (`bidx` = arange(B)) at `depth` [B]:
-    the candidate actions [B, C], the node's compact lanes as a LevelScratch
-    of [B, C] fields (rank_c None with noise pruning off), and the PUCT
-    scores [B, C]. `avoid_until` [B, 2, A] forbids, for the player to move
+    """One interior level for the nodes [R] of rows whose games are `bidx`
+    [R] (arange(B), or each game K times over in a K round) at `depth` [R]:
+    the candidate actions [R, C], the node's compact lanes as a LevelScratch
+    of [R, C] fields (rank_c None with noise pruning off), and the PUCT
+    scores [R, C]. `avoid_until` [B, 2, A] forbids, for the player to move
     at the node, the actions whose entry exceeds the depth (`forbid_c`, JAX
     mcts.py:1318-1323)."""
     cand, valid = _cand_lanes(cfg, tree.states, bidx, node)
@@ -853,7 +882,8 @@ def _interior_level(cfg, sp: SearchParams, tree: Tree, bidx, node, depth=None, a
     if avoid_until is not None:
         pidx = (tree.states.to_move[bidx, node].to(torch.int64) - 1).clamp(0, 1)
         forbid_c = _compact_row(avoid_until[bidx, pidx], cand, valid, 0) > depth[:, None]
-    cs_raw = gather_rows(tree.stats, child_c)
+    # a K round's rows of one game gather from its stats as one [B, K * C] row
+    cs_raw = gather_rows(tree.stats, child_c.reshape(tree.stats.shape[0], -1)).reshape(child_c.shape + (NUM_STATS,))
     cs = _edge_stats_from_raw(tree, bidx, node, cs_raw, child_row=child_c, evis_row=ev_c)
     selection = _selection_compact(
         sp, prior_c, cs, tree.stats[bidx, node], tree.self_stats[bidx, node, F_U], forbid_c
@@ -861,25 +891,52 @@ def _interior_level(cfg, sp: SearchParams, tree: Tree, bidx, node, depth=None, a
     return cand, LevelScratch(cs_raw, prior_c, child_c, ev_c, rank_c), selection
 
 
-def _want_catch(sp: SearchParams, ev, cvis, has_child) -> torch.Tensor:
+def _want_catch(sp: SearchParams, ev, cvis, has_child, leak=None) -> torch.Tensor:
     """The edge-visit catch-up test of graph search (search.cpp:1169-1206):
     the chosen edge has fewer visits than its child, so the playout claims
-    an edge visit there instead of descending. `ev` and `cvis` are the
+    an edge visit there instead of descending, unless `leak` [B] (the
+    catch-up leak, `_leaked`) lets it through. `ev` and `cvis` are the
     edge's visits and the child's S_VISITS, both float32."""
     if not sp.useGraphSearch:
         return torch.zeros_like(has_child)
-    return has_child & (ev < cvis - 0.5)
+    want = has_child & (ev < cvis - 0.5)
+    return want if leak is None else want & ~leak
+
+
+def _leaked(sp: SearchParams, leak_u: torch.Tensor | None, rows, depth):
+    """graphSearchCatchUpLeakProb (JAX :1215-1219, :1745-1748, :1853-1857):
+    [R] True where row `rows` leaks through a catch-up at node depth
+    `depth`, from one playout's uniform draws `leak_u` [R, D + 1], compared
+    in float32 as the JAX package compares; None without a leak."""
+    if leak_u is None:
+        return None
+    col = depth.clamp(max=leak_u.shape[1] - 1) if isinstance(depth, torch.Tensor) else depth
+    return leak_u[rows, col] < float(np.float32(sp.graphSearchCatchUpLeakProb))
+
+
+def _leak_source(sp: SearchParams, generator=None, draw_leak=None):
+    """A function (rows, cols, device) -> the uniform draws [rows, cols]
+    float32 of one playout's (K = 1) or round's catch-up leak, from
+    `draw_leak(rows, cols)` where given, else from `generator`; None without
+    a leak. Raises without either."""
+    if not (sp.useGraphSearch and sp.graphSearchCatchUpLeakProb > 0.0):
+        return None
+    if draw_leak is not None:
+        return lambda rows, cols, dev: draw_leak(rows, cols).to(device=dev, dtype=torch.float32)
+    g = _need_generator(generator, "graphSearchCatchUpLeakProb > 0")
+    return lambda rows, cols, dev: torch.rand((rows, cols), generator=g, device=dev)
 
 
 def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth: int, act_mask=None,
-                  avoid_until=None):
+                  avoid_until=None, leak_u=None):
     """The root level of descent, at full width from the carried root child
     stats. Returns (path, acts) [B, max_depth + 1] for the playout, the
     root's action act0 [B], (node, depth, walk) [B] after the level (`walk`:
     the games whose interior descent goes on) and the root's catch-up
     [B]. The traversed root edge of each game in `act_mask` (default all)
     is counted in `tree.edge_visits`. `avoid_until` [B, 2, A] forbids the
-    root mover the actions whose entry is above 0 (`forbid0`)."""
+    root mover the actions whose entry is above 0 (`forbid0`); `leak_u`
+    [B, max_depth + 1] are the playout's leak draws (column 0 here)."""
     B = root_cs.shape[0]
     dev = root_cs.device
     bidx = torch.arange(B, device=dev)
@@ -899,7 +956,7 @@ def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth
     has_child0 = child0 >= 0
     catch0 = _want_catch(
         sp, tree.edge_visits[bidx, 0, act0].to(torch.float32), tree.stats[bidx, child0.clamp(min=0), S_VISITS],
-        has_child0,
+        has_child0, _leaked(sp, leak_u, bidx, 0),
     ) & ~root_term
     move_on0 = ~root_term & has_child0 & ~catch0
     walk = move_on0 if act_mask is None else move_on0 & act_mask
@@ -911,19 +968,27 @@ def _descend_root(sp: SearchParams, tree: Tree, root_cs: torch.Tensor, max_depth
 
 
 def _descend_interior_plain(cfg, sp: SearchParams, tree: Tree, node, depth, active, path, acts,
-                            scratch: LevelScratch, avoid_until=None):
-    """The interior levels of descent on compact lanes, all B games in lock
+                            scratch: LevelScratch, avoid_until=None, leak_u=None, acts_f=None):
+    """The interior levels of descent on compact lanes, all rows in lock
     step with one host sync per level, from (node, depth, active) after the
-    root level down to the leaf. Per level and active game: the lanes go to
-    `scratch` slot depth-1 (rank_c only with noise pruning), the chosen lane
-    to `acts[depth]` (also where the child is missing or caught up), and on
-    moving on the edge visit to `tree.edge_visits` and the child to `path`;
-    all in place. `avoid_until` [B, 2, A] masks lanes (`_interior_level`).
-    Stops at a terminal node, a missing child, a graph-search catch-up or
-    depth == max_depth (the scratch's D). Returns (leaf, leaf_depth,
-    caught) [B]."""
-    B = node.shape[0]
-    bidx = torch.arange(B, device=node.device)
+    root level down to the leaf. A row is a game's playout: B rows, or in a
+    K round (`acts_f` given) R = B * K rows, row r of game r // K. Per level
+    and active row: the lanes go to `scratch` slot depth-1 (rank_c only with
+    noise pruning), the chosen lane to `acts[depth]` (also where the child
+    is missing or caught up), and on moving on the child to `path`; all in
+    place. One row a game counts the edge visit in `tree.edge_visits` as it
+    moves on; a K round records the lane's flat action in `acts_f[depth]`
+    instead and counts no edge visit (`_count_path_edges` adds them after
+    the descent: two rows of a game may pass one edge, and no level reads an
+    edge another level writes, the DAG being graded). `avoid_until` [B, 2,
+    A] masks lanes (`_interior_level`); `leak_u` [R, D + 1] are the leak
+    draws (`_leaked`). Stops at a terminal node, a missing child, a
+    graph-search catch-up or depth == max_depth (the scratch's D). Returns
+    (leaf, leaf_depth, caught) [R]."""
+    R = node.shape[0]
+    K = R // tree.stats.shape[0]
+    ridx = torch.arange(R, device=node.device)
+    bidx = torch.div(ridx, K, rounding_mode="floor") if K > 1 else ridx
     max_depth = scratch.child_c.shape[1]
     caught = torch.zeros_like(active)
     while bool(active.any()):
@@ -933,34 +998,54 @@ def _descend_interior_plain(cfg, sp: SearchParams, tree: Tree, node, depth, acti
         for buf, val in zip(scratch, lanes):
             if val is None:
                 continue
-            keep = active.reshape((B,) + (1,) * (val.dim() - 1))
-            buf[bidx, slot] = torch.where(keep, val, buf[bidx, slot])
+            keep = active.reshape((R,) + (1,) * (val.dim() - 1))
+            buf[ridx, slot] = torch.where(keep, val, buf[ridx, slot])
 
         act_c = torch.argmax(selection, dim=-1)
-        child = lanes.child_c[bidx, act_c]
-        flat_act = cand[bidx, act_c]  # -1 only where the lane is not active
+        child = lanes.child_c[ridx, act_c]
+        flat_act = cand[ridx, act_c]  # -1 only where the lane is not active
         rec = active & ~term
-        catch = rec & _want_catch(sp, lanes.ev_c[bidx, act_c], lanes.cs_raw[bidx, act_c, S_VISITS], child >= 0)
+        catch = rec & _want_catch(sp, lanes.ev_c[ridx, act_c], lanes.cs_raw[ridx, act_c, S_VISITS], child >= 0,
+                                  _leaked(sp, leak_u, ridx, depth))
         move_on = rec & (child >= 0) & ~catch
-        acts[bidx, torch.where(rec, depth, max_depth)] = torch.where(rec, act_c, acts[:, max_depth])
-        tree.edge_visits[bidx, node, flat_act.clamp(min=0)] += move_on.to(torch.int32)
+        at = torch.where(rec, depth, max_depth)
+        acts[ridx, at] = torch.where(rec, act_c, acts[:, max_depth])
+        if acts_f is None:
+            tree.edge_visits[bidx, node, flat_act.clamp(min=0)] += move_on.to(torch.int32)
+        else:
+            acts_f[ridx, at] = torch.where(rec, flat_act, acts_f[:, max_depth])
         node = torch.where(move_on, child.clamp(min=0).to(torch.int64), node)
         depth = torch.where(move_on, depth + 1, depth)
-        path[bidx, torch.where(move_on, depth, 0)] = torch.where(move_on, node, path[:, 0])
+        path[ridx, torch.where(move_on, depth, 0)] = torch.where(move_on, node, path[:, 0])
         caught |= catch
         active = move_on & (depth < max_depth)
     return node, depth, caught
 
 
+def _count_path_edges(tree: Tree, path, acts_f, leaf_depth, act_mask) -> None:
+    """A K round's interior edge visits, in one integer scatter-add after
+    its descent: row r (game r // K) passed the edge (path[r, d],
+    acts_f[r, d]) for 1 <= d < leaf_depth[r], counted where `act_mask` [R].
+    Integer adds give the same counts in any order."""
+    B, N, A = tree.edge_visits.shape
+    R, W = path.shape
+    d = torch.arange(W, device=path.device)[None, :]
+    game = torch.div(torch.arange(R, device=path.device), R // B, rounding_mode="floor")[:, None]
+    moved = (d >= 1) & (d < leaf_depth[:, None]) & act_mask[:, None]
+    flat = (game * N + path.clamp(min=0)) * A + acts_f.clamp(0, A - 1)
+    tree.edge_visits.view(-1).index_add_(0, flat.reshape(-1), moved.reshape(-1).to(torch.int32))
+
+
 def _descend_interior(cfg, sp: SearchParams, tree: Tree, node, depth, active, path, acts,
-                      scratch: LevelScratch, avoid_until=None):
+                      scratch: LevelScratch, avoid_until=None, leak_u=None, acts_f=None):
     """The interior descent: `_descend_interior_plain` on CPU tensors, else
     one launch of the fused CUDA kernel (`ops.descend.descend_interior`),
     which raises on anything it does not take. No fallback."""
     if tree.stats.device.type == "cpu" and node.device.type == "cpu":
-        return _descend_interior_plain(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_until)
+        return _descend_interior_plain(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_until,
+                                       leak_u, acts_f)
     cand = _cand_table_i16(cfg, node.device)
-    return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch, avoid_until)
+    return descend_interior(sp, cand, tree, node, depth, active, path, acts, scratch, avoid_until, leak_u, acts_f)
 
 
 def _hash_lookup(tree: Tree, new_hash, expanding):
@@ -974,7 +1059,7 @@ def _hash_lookup(tree: Tree, new_hash, expanding):
 
 def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth: int,
                    root_cs: torch.Tensor, scratch: LevelScratch, active: torch.Tensor | None = None,
-                   avoid_until: torch.Tensor | None = None) -> torch.Tensor:
+                   avoid_until: torch.Tensor | None = None, leak_u: torch.Tensor | None = None) -> torch.Tensor:
     """One playout per game, updating `tree` in place; a game outside
     `active` [B] (default all) changes nothing. `root_cs` [B, A, 8] is the
     root's child-stats gather carried across the simulations of one search:
@@ -982,19 +1067,20 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     here (in place) and returned. `scratch` holds the interior levels' lanes
     from the descent to the backup. `avoid_until` [B, 2, A] int32: the
     player p may not play action a at depth d while avoid_until[b, p-1, a]
-    > d (avoidMoveUntilByLoc)."""
+    > d (avoidMoveUntilByLoc). `leak_u` [B, max_depth + 1]: the playout's
+    catch-up leak draws (`_leaked`), None without a leak."""
     B, N, A = tree.prior.shape
     dev = tree.stats.device
     bidx = torch.arange(B, device=dev)
     C = 4 * max(cfg.x_size, cfg.y_size)
     zero = torch.zeros((B,), dtype=torch.int64, device=dev)
     act_mask = torch.ones((B,), dtype=torch.bool, device=dev) if active is None else active
-    use_bias = sp.subtreeValueBiasFactor != 0.0
 
     # ---------------- Descent ----------------
-    path, acts, act0, node, depth, walk, caught0 = _descend_root(sp, tree, root_cs, max_depth, active, avoid_until)
+    path, acts, act0, node, depth, walk, caught0 = _descend_root(sp, tree, root_cs, max_depth, active, avoid_until,
+                                                                 leak_u)
     leaf, leaf_depth, caught = _descend_interior(cfg, sp, tree, node, depth, walk, path, acts, scratch,
-                                                 avoid_until)
+                                                 avoid_until, leak_u=leak_u)
     caught = (caught | caught0) & act_mask
     # the stopping edge's flat action: the root's, or the recorded lane
     # mapped through the leaf's candidate table
@@ -1010,16 +1096,65 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
     expanding = ~leaf_is_terminal & ~caught & ~depth_capped & act_mask
 
     # ---------------- Expansion ----------------
-    # step, evaluate, then link to a transposed node (graph search) or
-    # allocate a slot
     new_states = step(cfg, tree.states.map(lambda x: x[bidx, leaf]), action)
-    res = eval_fn(new_states)
+    new_child, edge_inc, revisit = _expand(cfg, sp, tree, leaf, action, new_states, eval_fn(new_states), expanding,
+                                           caught, leaf_terminal)
+
+    # ---------------- Backup ----------------
+    # Recompute the path bottom-up. A terminal/overflow revisit starts at the
+    # leaf's parent; an expansion, link or catch-up starts at the stopping
+    # node. Interior levels reuse the descent's saved lanes (the scratch),
+    # patched with what this playout changed: the new child link, the edge
+    # visits, the path child's stats.
+    limit = torch.where(revisit | depth_capped, leaf_depth - 1, leaf_depth)
+    for lvl in range(int(torch.where(act_mask, limit, 0).max()), 0, -1):
+        n = path[:, lvl]
+        on_path = (lvl <= limit) & (n >= 0) & (lvl <= leaf_depth) & act_mask
+        cs_raw, prior_c, child_c, ev_c, rank_c = (x[:, lvl - 1] for x in scratch)  # views: patches land
+        pa = acts[:, lvl]
+        at_stop = leaf_depth == lvl
+        child_c[bidx, pa] = torch.where(at_stop & (new_child >= 0), new_child, child_c[bidx, pa])
+        ev_c[bidx, pa] += torch.where(
+            at_stop, edge_inc.to(torch.float32), (lvl < leaf_depth).to(torch.float32)
+        )
+        pchild = child_c[bidx, pa]
+        prow = tree.stats[bidx, pchild.clamp(min=0).to(torch.int64)]
+        cs_raw[bidx, pa] = torch.where((pchild >= 0)[:, None], prow, cs_raw[bidx, pa])
+        _recompute_node(sp, tree, n, on_path, cs_raw=cs_raw, lanes=(child_c, ev_c, prior_c, rank_c))
+
+    # root level, full width, from the carried root child stats
+    rchild = tree.children[bidx, 0, act0]
+    rrow = tree.stats[bidx, rchild.clamp(min=0).to(torch.int64)]
+    root_cs[bidx, act0] = torch.where((rchild >= 0)[:, None], rrow, root_cs[bidx, act0])
+    _recompute_node(sp, tree, zero, (limit >= 0) & act_mask, cs_raw=root_cs)
+    return root_cs
+
+
+def _expand(cfg, sp: SearchParams, tree: Tree, leaf, action, new_states: GameState, res: EvalResult, expanding,
+            caught, leaf_terminal, child_now=None):
+    """One playout's expansion for each game [B], in place: where
+    `expanding`, link the stopping edge (leaf, action) to the node of the
+    same situation (graph search) or to `child_now` (the child a playout
+    earlier in the round made there, K round), else allocate a slot for
+    `new_states` with its evaluation `res`; count the stopping edge's visit
+    (a new or linked edge is traversed once, a catch-up claims one,
+    search.cpp:1199); and re-add a terminal leaf's value, or a leaf's when
+    the tree is full (a revisit). Returns (new_child [B] int32, the linked
+    child or -1; edge_inc [B] int32; revisit [B])."""
+    B, N, A = tree.prior.shape
+    dev = tree.stats.device
+    bidx = torch.arange(B, device=dev)
+    use_bias = sp.subtreeValueBiasFactor != 0.0
     if sp.useGraphSearch:
         new_hash = situation_hash(cfg, new_states)
         found, found_idx = _hash_lookup(tree, new_hash, expanding)
     else:
         found = torch.zeros_like(expanding)
-        found_idx = zero
+        found_idx = torch.zeros((B,), dtype=torch.int64, device=dev)
+    if child_now is not None:
+        has_now = child_now >= 0
+        found = (found | has_now) & expanding
+        found_idx = torch.where(has_now, child_now.to(torch.int64), found_idx)
 
     new_idx = tree.node_count.clone()  # node_count is advanced in place below
     capacity_ok = new_idx < N
@@ -1069,8 +1204,6 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
         linked, new_child.to(torch.int32), tree.children[bidx, leaf, action]
     )
     tree.node_count.add_(do_alloc.to(torch.int64))
-    # the stopping edge's visit: a new or linked edge is traversed once, a
-    # catch-up claims one visit (search.cpp:1199)
     edge_inc = (linked | caught).to(torch.int32)
     tree.edge_visits[bidx, leaf, action] += edge_inc
 
@@ -1093,35 +1226,158 @@ def _simulate_once(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth
         (leaf_row[:, S_DRAW] * old_ws + leaf_self[:, F_DRAW] * lw) * inv,
     )
     tree.stats[bidx, leaf] = torch.where(revisit[:, None], revisit_row, leaf_row)
+    return torch.where(linked, new_child, -1).to(torch.int32), edge_inc, revisit
 
-    # ---------------- Backup ----------------
-    # Recompute the path bottom-up. A terminal/overflow revisit starts at the
-    # leaf's parent; an expansion, link or catch-up starts at the stopping
-    # node. Interior levels reuse the descent's saved lanes (the scratch),
-    # patched with what this playout changed: the new child link, the edge
-    # visits, the path child's stats.
-    limit = torch.where(revisit | depth_capped, leaf_depth - 1, leaf_depth)
-    new_child = torch.where(linked, new_child, -1).to(torch.int32)
+
+def make_round_scratch(cfg: GameConfig, batch: int, threads: int, max_depth: int, device) -> LevelScratch:
+    """Scratch of a K round (JAX `make_round_scratch`, :1645): the
+    LevelScratch of its B * K rows, row b * K + k for playout k of game b."""
+    return make_level_scratch(cfg, batch * threads, max_depth, device)
+
+
+def _simulate_round(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_depth: int, K: int,
+                    root_cs: torch.Tensor, scratch: LevelScratch, active: torch.Tensor | None = None,
+                    avoid_until: torch.Tensor | None = None, leak_u: torch.Tensor | None = None) -> torch.Tensor:
+    """K playouts per game in one round (numSearchThreads = K; JAX
+    `_simulate_round`, :1653-2199), updating `tree` in place. Slot k of game
+    b is row b * K + k; `active` [B, K] masks slots (default all), `scratch`
+    is a `make_round_scratch`, `leak_u` [B * K, max_depth + 1] the round's
+    leak draws, `root_cs` as in `_simulate_once` (patched and returned).
+
+    The root selections run in playout order over the in-flight root edge
+    visits, each earlier claim adding a virtual loss (weight 1 at
+    -winLossUtilityFactor; the forced-playout test sees the weights without
+    them). Below the root the B * K rows descend in one interior descent
+    with no sight of each other's edge visits, which are counted after it
+    (the DAG is graded, so rows meet only at one level). One evaluation
+    serves the B * K leaves; the expansions then run in playout order, a
+    later playout linking to a child an earlier one made. The union backup
+    recomputes each distinct path node once a level, the first playout at
+    it counting every playout that passed it, from its saved lanes patched
+    with fresh reads of every lane some playout changed there; then the
+    root once, with the count of the round's playouts."""
+    B, N, A = tree.prior.shape
+    BK = B * K
+    dev = tree.stats.device
+    bidx = torch.arange(B, device=dev)
+    bidx2 = bidx.repeat_interleave(K)  # the game of each row
+    zero = torch.zeros((B,), dtype=torch.int64, device=dev)
+    act_mask = torch.ones((B, K), dtype=torch.bool, device=dev) if active is None else active
+    am_flat = act_mask.reshape(BK)
+    D = max_depth
+
+    # ---------------- Root level: K selections in order ----------------
+    root_term = tree.is_terminal[:, 0]
+    ev_root = tree.edge_visits[:, 0].clone()  # with this round's in-flight visits
+    forbid0 = None
+    if avoid_until is not None:
+        pidx0 = (tree.states.to_move[:, 0].to(torch.int64) - 1).clamp(0, 1)
+        forbid0 = avoid_until[bidx, pidx0] > 0
+    claimed = torch.zeros((B, A), dtype=torch.float32, device=dev)
+    ones_b = torch.ones((B,), dtype=torch.bool, device=dev)
+    act0, node1, move_on0, catch0 = [], [], [], []
+    for k in range(K):
+        cs0 = _edge_stats_from_raw(tree, bidx, zero, root_cs, evis_row=ev_root)
+        if k > 0:
+            # virtual losses on the edges earlier playouts of the round claimed
+            w0, q0 = cs0["w"], cs0["u"]
+            wv = w0 + claimed
+            qv = torch.where(claimed > 0, (w0 * q0 - claimed * sp.winLossUtilityFactor) / wv.clamp(min=_EPS), q0)
+            cs0 = dict(cs0, w=wv, u=qv, live=cs0["live"] | (claimed > 0), force_w=w0)
+        a0 = _select_action(sp, tree, zero, ones_b, cs=cs0, forbid=forbid0)
+        child0 = tree.children[bidx, 0, a0].to(torch.int64)
+        has0 = child0 >= 0
+        wc0 = _want_catch(sp, ev_root[bidx, a0].to(torch.float32), tree.stats[bidx, child0.clamp(min=0), S_VISITS],
+                          has0, _leaked(sp, leak_u, bidx * K + k, 0))
+        mo0 = ~(root_term | wc0 | ~has0)
+        ev_root[bidx, a0] += (mo0 & act_mask[:, k]).to(torch.int32)
+        claimed[bidx, a0] += act_mask[:, k].to(torch.float32)
+        act0.append(a0)
+        node1.append(torch.where(mo0, child0.clamp(min=0), 0))
+        move_on0.append(mo0)
+        catch0.append(wc0 & ~root_term)
+    act0, node1, move_on0, catch0 = (torch.stack(x, dim=1).reshape(BK) for x in (act0, node1, move_on0, catch0))
+    tree.edge_visits[:, 0] = ev_root
+
+    # ---------------- Interior levels: the B * K rows at once ----------------
+    path = torch.full((BK, D + 1), -1, dtype=torch.int64, device=dev)
+    path[:, 0] = 0
+    path[:, 1] = torch.where(move_on0, node1, -1)
+    acts = torch.zeros((BK, D + 1), dtype=torch.int64, device=dev)
+    acts_f = torch.zeros((BK, D + 1), dtype=torch.int64, device=dev)
+    acts_f[:, 0] = act0
+    leaf_f, leaf_depth_f, caught_f = _descend_interior(
+        cfg, sp, tree, node1, move_on0.to(torch.int64), move_on0 & (1 < D), path, acts, scratch, avoid_until,
+        leak_u=leak_u, acts_f=acts_f)
+    _count_path_edges(tree, path, acts_f, leaf_depth_f, am_flat)
+    leaf = leaf_f.reshape(B, K)
+    leaf_depth = leaf_depth_f.reshape(B, K)
+    action = acts_f[torch.arange(BK, device=dev), leaf_depth_f].clamp(0, A - 1).reshape(B, K)
+    caught = (caught_f | catch0).reshape(B, K) & act_mask
+    leaf_terminal = tree.is_terminal[bidx[:, None], leaf] & act_mask
+
+    # ---------------- One evaluation, then the expansions in order ----------------
+    new_states = step(cfg, tree.states.map(lambda x: x[bidx2, leaf_f]), action.reshape(BK))
+    res = eval_fn(new_states)
+
+    def slice_k(x, k):
+        return x.reshape((B, K) + x.shape[1:])[:, k]
+
+    new_child, edge_inc, revisit = [], [], []
+    for k in range(K):
+        leaf_k, action_k = leaf[:, k], action[:, k]
+        expanding = ~tree.is_terminal[bidx, leaf_k] & ~caught[:, k] & act_mask[:, k]
+        out = _expand(cfg, sp, tree, leaf_k, action_k, new_states.map(lambda x: slice_k(x, k)),
+                      EvalResult(*(None if x is None else slice_k(x, k) for x in res)), expanding, caught[:, k],
+                      leaf_terminal[:, k], child_now=tree.children[bidx, leaf_k, action_k])
+        for acc, x in zip((new_child, edge_inc, revisit), out):
+            acc.append(x)
+    revisit = torch.stack(revisit, dim=1)
+
+    # ---------------- Union backup ----------------
+    limit = torch.where(revisit, leaf_depth - 1, leaf_depth)
+    limit_f = limit.reshape(BK)
+    C = scratch.child_c.shape[2]
     for lvl in range(int(torch.where(act_mask, limit, 0).max()), 0, -1):
-        n = path[:, lvl]
-        on_path = (lvl <= limit) & (n >= 0) & (lvl <= leaf_depth) & act_mask
+        nodes_f = path[:, lvl]
+        on_path = ((lvl <= limit_f) & (nodes_f >= 0) & (lvl <= leaf_depth_f) & am_flat).reshape(B, K)
+        nodes = nodes_f.reshape(B, K)
         cs_raw, prior_c, child_c, ev_c, rank_c = (x[:, lvl - 1] for x in scratch)  # views: patches land
-        pa = acts[:, lvl]
-        at_stop = leaf_depth == lvl
-        child_c[bidx, pa] = torch.where(at_stop & (new_child >= 0), new_child, child_c[bidx, pa])
-        ev_c[bidx, pa] += torch.where(
-            at_stop, edge_inc.to(torch.float32), (lvl < leaf_depth).to(torch.float32)
-        )
-        pchild = child_c[bidx, pa]
-        prow = tree.stats[bidx, pchild.clamp(min=0).to(torch.int64)]
-        cs_raw[bidx, pa] = torch.where((pchild >= 0)[:, None], prow, cs_raw[bidx, pa])
-        _recompute_node(sp, tree, n, on_path, cs_raw=cs_raw, lanes=(child_c, ev_c, prior_c, rank_c))
+        cs3, child3, ev3 = cs_raw.view(B, K, C, NUM_STATS), child_c.view(B, K, C), ev_c.view(B, K, C)
+        pa_c = acts[:, lvl].reshape(B, K)
+        pa_f = acts_f[:, lvl].clamp(0, A - 1).reshape(B, K)
+        # same[b, k, j]: playout j passed row k's node at this level
+        same = on_path[:, None, :] & (nodes[:, :, None] == nodes[:, None, :])
+        # every lane some playout changed at row k's node, read afresh; the
+        # playouts that changed one lane took one action, so any of them
+        # (the first) gives its fresh reads
+        n_j = nodes.clamp(min=0)
+        fresh_child = tree.children[bidx[:, None], n_j, pa_f]  # [B, K] at each j's node and action
+        fresh_ev = tree.edge_visits[bidx[:, None], n_j, pa_f].to(torch.float32)
+        hit = same[..., None] & (pa_c[:, None, :, None] == torch.arange(C, device=dev))  # [B, k, j, C]
+        j_at = hit.to(torch.int8).argmax(2)  # [B, k, C]
+        patched = hit.any(2)
+        child_at = torch.gather(fresh_child[:, None, :].expand(B, K, K), 2, j_at)
+        child3.copy_(torch.where(patched, child_at, child3))
+        ev3.copy_(torch.where(patched, torch.gather(fresh_ev[:, None, :].expand(B, K, K), 2, j_at), ev3))
+        prow = tree.stats[bidx[:, None, None], child_at.clamp(min=0).to(torch.int64)]
+        cs3.copy_(torch.where((patched & (child_at >= 0))[..., None], prow, cs3))
+        # the first playout at a node recomputes it, counting all that passed
+        first = on_path & ~(same & torch.ones((K, K), dtype=torch.bool, device=dev).tril(-1)).any(-1)
+        cnt = same.sum(-1).to(torch.float32)
+        # the other rows name the root, whose row they write back unchanged
+        node_w = torch.where(first, nodes, 0).reshape(BK)
+        _recompute_node(sp, tree, node_w, first.reshape(BK), cs_raw=cs_raw, lanes=(child_c, ev_c, prior_c, rank_c),
+                        visit_inc=cnt.reshape(BK), bidx=bidx2)
 
-    # root level, full width, from the carried root child stats
-    rchild = tree.children[bidx, 0, act0]
-    rrow = tree.stats[bidx, rchild.clamp(min=0).to(torch.int64)]
-    root_cs[bidx, act0] = torch.where((rchild >= 0)[:, None], rrow, root_cs[bidx, act0])
-    _recompute_node(sp, tree, zero, (limit >= 0) & act_mask, cs_raw=root_cs)
+    # root level, full width, once, with the round's count
+    root_on = (limit >= 0) & act_mask
+    for k in range(K):
+        a0 = act0.reshape(B, K)[:, k]
+        rchild = tree.children[bidx, 0, a0]
+        rrow = tree.stats[bidx, rchild.clamp(min=0).to(torch.int64)]
+        root_cs[bidx, a0] = torch.where((root_on[:, k] & (rchild >= 0))[:, None], rrow, root_cs[bidx, a0])
+    _recompute_node(sp, tree, zero, root_on.any(-1), cs_raw=root_cs, visit_inc=root_on.sum(-1).to(torch.float32))
     return root_cs
 
 
@@ -1129,16 +1385,26 @@ def _norm_cdf(z):
     return 0.5 * (1.0 + torch.erf(z / math.sqrt(2.0)))
 
 
-def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes=None) -> None:
-    """recomputeNodeStats for nodes [B] where `mask` (searchupdatehelpers.cpp:
+def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes=None, visit_inc=1.0,
+                    bidx=None) -> None:
+    """recomputeNodeStats for nodes [R] where `mask` (searchupdatehelpers.cpp:
     152-337): aggregate the child edges with noise pruning, the root-noise
     weight subtraction and value-based downweighting, update the subtree
     value bias entry, and add the node's (biased) own eval; one row write
-    per node. `cs_raw` [B, A', 8] supplies the children's raw stat rows;
-    `lanes` = (child_row, evis_row, prior_row, rank_row) supplies compact
-    [B, C] lane views for interior nodes, which are never the root."""
-    B = node.shape[0]
-    bidx = torch.arange(B, device=node.device)
+    per node, its visits raised by `visit_inc` (a float or [R]: the
+    playouts that passed the node). `cs_raw` [R, A', 8] supplies the
+    children's raw stat rows; `lanes` = (child_row, evis_row, prior_row,
+    rank_row) supplies compact [R, C] lane views for interior nodes, which
+    are never the root. `bidx` [R] maps the rows to their games (default
+    one row a game); rows of one game are then K contiguous rows, at most
+    one of them masked in at a node, and the rows masked out must name the
+    root (their writes put its row back unchanged). Their bias-table adds,
+    which may share an entry, are summed in row order (JAX's scatter-add)
+    and written once a row, each row of an entry writing the same sum."""
+    R = node.shape[0]
+    rows_per_game = 1 if bidx is None else R // tree.stats.shape[0]
+    if bidx is None:
+        bidx = torch.arange(R, device=node.device)
     if cs_raw is None:
         cs_raw = _gather_child_stats(tree, bidx, node)
     child_row, evis_row, prior_row, rank_row = (None,) * 4 if lanes is None else lanes
@@ -1211,9 +1477,17 @@ def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes
         do_upd = mask & (orig_total > 1e-10)
         last_d = tree.last_bias_delta[bidx, node]
         last_w = tree.last_bias_weight[bidx, node]
-        tree.bias_table[bidx, key] += torch.stack(
-            [torch.where(do_upd, delta - last_d, 0.0), torch.where(do_upd, w_b - last_w, 0.0)], dim=-1
-        )
+        add = torch.stack([torch.where(do_upd, delta - last_d, 0.0), torch.where(do_upd, w_b - last_w, 0.0)], dim=-1)
+        if rows_per_game == 1:
+            tree.bias_table[bidx, key] += add
+        else:
+            K = rows_per_game
+            keys, adds = key.reshape(-1, K), add.reshape(-1, K, 2)
+            total = tree.bias_table[bidx, key]
+            for j in range(K):
+                same = (keys[:, j, None] == keys).reshape(R)
+                total = total + torch.where(same[:, None], adds[:, j].repeat_interleave(K, dim=0), 0.0)
+            tree.bias_table[bidx, key] = total
         tree.last_bias_delta[bidx, node] = torch.where(do_upd, delta, last_d)
         tree.last_bias_weight[bidx, node] = torch.where(do_upd, w_b, last_w)
         self_u = self_u + torch.where(tree.is_terminal[bidx, node], 0.0, _bias_avg(sp, tree, bidx, key))
@@ -1222,7 +1496,7 @@ def _recompute_node(sp: SearchParams, tree: Tree, node, mask, cs_raw=None, lanes
     inv = 1.0 / weight_sum.clamp(min=_EPS)
     old_row = tree.stats[bidx, node]
     new_row = _stats_row(
-        old_row[:, S_VISITS] + 1.0,
+        old_row[:, S_VISITS] + visit_inc,
         weight_sum,
         (scaling * scaling * cwsq).sum(-1) + self_w * self_w,
         (util_children_sum + self_w * self_u) * inv,
@@ -1256,23 +1530,51 @@ def _root_child_stats_raw(tree: Tree) -> torch.Tensor:
     )
 
 
-def _run_to_target(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, target, max_sims: int,
-                   avoid_until=None) -> int:
-    """Playouts until every root has `target` visits (a float or [B]), at
-    most `max_sims`; a game at its target changes nothing. Returns the
-    simulations run. Each playout adds at most one visit to a root, so the
-    largest deficit is run before the host reads the visits again."""
+def _threads(sp: SearchParams) -> int:
+    return max(1, int(sp.numSearchThreads))
+
+
+def _round_runner(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, avoid_until=None, leak=None):
+    """A function that runs one round of every game, `_simulate_once` or
+    `_simulate_round` with numSearchThreads = K > 1, on an active mask
+    ([B], or [B, K] slots; None for all). Its rounds share one root gather
+    and one scratch, made here. `leak` is a `_leak_source`."""
+    B = tree.stats.shape[0]
+    dev = tree.stats.device
+    K = _threads(sp)
     max_depth = _max_depth(cfg, sp)
     root_cs = _root_child_stats_raw(tree)
-    scratch = make_level_scratch(cfg, tree.stats.shape[0], max_depth, tree.stats.device)
+    scratch = make_round_scratch(cfg, B, K, max_depth, dev)
+
+    def one_round(active):
+        leak_u = None if leak is None else leak(B * K, max_depth + 1, dev)
+        if K == 1:
+            _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch, active, avoid_until, leak_u)
+        else:
+            _simulate_round(cfg, sp, eval_fn, tree, max_depth, K, root_cs, scratch, active, avoid_until, leak_u)
+
+    return one_round
+
+
+def _run_to_target(cfg, sp: SearchParams, eval_fn: EvalFn, tree: Tree, target, max_rounds: int,
+                   avoid_until=None, leak=None) -> int:
+    """Rounds until every root has `target` visits (a float or [B]), at
+    most `max_rounds`; a game at its target changes nothing, and in a K
+    round a game gets only as many playout slots as it lacks visits. Returns
+    the rounds run. A round adds at most K visits to a root, so the rounds
+    that the largest deficit needs are run before the host reads the visits
+    again."""
+    K = _threads(sp)
+    one_round = _round_runner(cfg, sp, eval_fn, tree, avoid_until, leak)
+    slots = torch.arange(K, device=tree.stats.device)[None, :]
     rounds = 0
-    while rounds < max_sims:
+    while rounds < max_rounds:
         need = math.ceil(float((target - tree.stats[:, 0, S_VISITS]).max()))
         if need <= 0:
             break
-        for _ in range(min(need, max_sims - rounds)):
-            active = tree.stats[:, 0, S_VISITS] < target
-            root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch, active, avoid_until)
+        for _ in range(min(-(-need // K), max_rounds - rounds)):
+            deficit = target - tree.stats[:, 0, S_VISITS]
+            one_round(deficit > 0 if K == 1 else slots < deficit[:, None])
             rounds += 1
     return rounds
 
@@ -1289,6 +1591,7 @@ def run_search(
     device: str | torch.device | None = None,
     generator: torch.Generator | None = None,
     draws: RootDraws | None = None,
+    draw_leak: Callable[[int, int], torch.Tensor] | None = None,
     reuse_tree: Tree | None = None,
     reuse_actions: torch.Tensor | None = None,
     reuse_ok: torch.Tensor | None = None,
@@ -1301,22 +1604,30 @@ def run_search(
     root states are moved there). The evaluator must run on the same device.
 
     Without `reuse_tree`: exactly `num_sims` playouts per game (the root
-    ends at num_sims + 1 visits). With `reuse_tree` (the previous move's
-    tree), `reuse_actions` [B] (the move each game played) and `reuse_ok`
-    [B] (False where reuse is invalid, such as a reset game): the tree is
-    re-rooted at the played child (`advance_root`) and playouts run until
-    every root has num_sims + 1 visits, at most `num_sims` of them.
+    ends at num_sims + 1 visits), in ceil(num_sims / K) rounds of K =
+    numSearchThreads playouts (the last round's slots past num_sims idle).
+    With `reuse_tree` (the previous move's tree), `reuse_actions` [B] (the
+    move each game played) and `reuse_ok` [B] (False where reuse is invalid,
+    such as a reset game): the tree is re-rooted at the played child
+    (`advance_root`) and rounds run until every root has num_sims + 1
+    visits, at most `num_sims` of them.
 
     `root_hint` [B] is each game's rootHintLoc action (-1 none); `root_avoid`
     [B, A] bool masks root moves (avoidMoves/allowMoves; a mask that leaves
     a game no legal move is ignored); `avoid_until` [B, 2, A] int32 gates the
     descent: player p may not take action a at depth d while
-    avoid_until[b, p-1, a] > d (avoidMoveUntilByLoc). The root's random
-    draws come from `draws` where given, else from `generator`, a
-    torch.Generator on `device`; a search that needs one and has neither
-    raises. With `with_diag` it also returns {"rounds": simulations run,
-    "start_visits": [B] root visits before them}."""
-    _check_supported(sp)
+    avoid_until[b, p-1, a] > d (avoidMoveUntilByLoc). The random draws come
+    from `draws` (the root's) and `draw_leak(rows, cols)` (each playout's or
+    round's catch-up leak, [rows, cols] uniform) where given, else from
+    `generator`, a torch.Generator on `device`; a search that needs one and
+    has neither raises. numSearchThreads > 1 with maxPlayoutDepthProp < 1
+    under graph search raises NotImplementedError, as in the JAX package.
+    With `with_diag` it also returns {"rounds": rounds run, "start_visits":
+    [B] root visits before them}."""
+    K = _threads(sp)
+    if K > 1 and sp.useGraphSearch and sp.maxPlayoutDepthProp < 1.0:
+        raise NotImplementedError("maxPlayoutDepthProp < 1 requires numSearchThreads == 1")
+    leak = _leak_source(sp, generator, draw_leak)
     dev = resolve_device(device)
     root_states = root_states.map(lambda x: x.to(dev))
     if root_hint is not None:
@@ -1329,12 +1640,12 @@ def run_search(
         tree = init_tree(cfg, sp, eval_fn, root_states, max_nodes, generator=generator, draws=draws,
                          root_hint=root_hint, root_avoid=root_avoid)
         B = tree.stats.shape[0]
-        max_depth = _max_depth(cfg, sp)
-        root_cs = _root_child_stats_raw(tree)
-        scratch = make_level_scratch(cfg, B, max_depth, dev)
-        for _ in range(num_sims):
-            root_cs = _simulate_once(cfg, sp, eval_fn, tree, max_depth, root_cs, scratch, avoid_until=avoid_until)
-        rounds = num_sims
+        rounds = -(-num_sims // K)
+        one_round = _round_runner(cfg, sp, eval_fn, tree, avoid_until, leak)
+        slots = torch.arange(K, device=dev)[None, :].expand(B, K)
+        for r in range(rounds):
+            # the last round hands out only the rest of the budget
+            one_round(None if K == 1 else r * K + slots < num_sims)
         start_visits = torch.ones((B,), dtype=torch.float32, device=dev)
     else:
         if reuse_actions is None:
@@ -1344,7 +1655,7 @@ def run_search(
                             reuse_ok=None if reuse_ok is None else reuse_ok.to(dev), root_hint=root_hint,
                             root_avoid=root_avoid)
         start_visits = tree.stats[:, 0, S_VISITS].clone()
-        rounds = _run_to_target(cfg, sp, eval_fn, tree, float(num_sims + 1), num_sims, avoid_until)
+        rounds = _run_to_target(cfg, sp, eval_fn, tree, float(num_sims + 1), num_sims, avoid_until, leak)
     if with_diag:
         return tree, {"rounds": rounds, "start_visits": start_visits}
     return tree
@@ -1352,18 +1663,21 @@ def run_search(
 
 @torch.no_grad()
 def continue_search(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree, max_more_sims: int,
-                    target_visits, avoid_until: torch.Tensor | None = None) -> Tree:
+                    target_visits, avoid_until: torch.Tensor | None = None, *,
+                    generator: torch.Generator | None = None,
+                    draw_leak: Callable[[int, int], torch.Tensor] | None = None) -> Tree:
     """Continue a search at the same root until each game's root has
     `target_visits` visits (a float or [B]), at most `max_more_sims` more
-    playouts: the interruptible half of the search loop. The tree must have
-    the node capacity for the final target. `avoid_until` [B, 2, A] as in
+    rounds (playouts, with numSearchThreads = 1): the interruptible half of
+    the search loop. The tree must have the node capacity for the final
+    target. `avoid_until` [B, 2, A], `generator` and `draw_leak` as in
     `run_search`. Updates `tree` in place and returns it."""
-    _check_supported(sp)
+    leak = _leak_source(sp, generator, draw_leak)
     dev = tree.stats.device
     target = torch.as_tensor(target_visits, dtype=torch.float32, device=dev)
     if avoid_until is not None:
         avoid_until = avoid_until.to(device=dev, dtype=torch.int32)
-    _run_to_target(cfg, sp, eval_fn, tree, target, max_more_sims, avoid_until)
+    _run_to_target(cfg, sp, eval_fn, tree, target, max_more_sims, avoid_until, leak)
     return tree
 
 
@@ -1386,7 +1700,6 @@ def advance_root(cfg: GameConfig, sp: SearchParams, eval_fn: EvalFn, tree: Tree,
     [B, A] masks both (`_make_root_prior`). Index gathers
     replace the JAX package's one-hot matmuls; the payloads are integers or
     exact copies, so the result is the same. Returns a new Tree."""
-    _check_supported(sp)
     B, N = tree.stats.shape[:2]
     dev = tree.stats.device
     bidx = torch.arange(B, device=dev)

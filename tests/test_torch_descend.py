@@ -14,7 +14,12 @@ built, with transpositions, where descents stop at edge-visit catch-ups
 optimistic priors and the FPU visited-policy pow 1.0), and under the GTP
 engine's profile (`for_tests_v2()`: noise pruning, so the scratch's rank_c
 lane) with an `avoid_until` mask, on a game of which every lane is
-forbidden (the mask is then ignored). Leaf, depth,
+forbidden (the mask is then ignored); with the catch-up leak's draws on
+the graph-search trees; and in the rows mode of a round of K playouts a
+game (row r walks game r // K, records its flat actions, writes no edge
+visit), on a round's own inputs and on rows copied so that a game's rows
+meet at every node, whose edge visits `_count_path_edges` then adds K
+times. Leaf, depth,
 caught, path, acts, edge visits and the scratch slots must be equal; the
 scratch's stat rows also equal the JAX package's gather. The PUCT scores
 agree within 1e-6, not exactly: the emulation sums the lanes in the order of
@@ -143,7 +148,8 @@ def _first_max(sel):
     return best
 
 
-def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_until=None, pick=_first_max):
+def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_until=None, leak_u=None, acts_f=None,
+             pick=_first_max):
     """The kernel's descent over CPU tensors, updated in place through numpy
     views, choosing each level's lane with `pick(scores)`. As in the kernel,
     only the first node's fields (terminal flag, candidate row, stats row,
@@ -151,8 +157,12 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_unti
     the tree; every later node's come with the child lane the level above
     chose (the mover alternates), and an edge visit is written as that
     lane's loaded count + 1, never read back. Under noise pruning each lane
-    stores its policy rank. Returns (leaf, leaf_depth, caught) and
-    {(game, depth): scores} of each non-terminal level."""
+    stores its policy rank. With `leak_u` [R, D + 1] a catch-up is let
+    through where the row's draw at the node's depth is below the float32
+    probability. With `acts_f` (the rows flag) row r walks game r // K's
+    tree, records its flat actions there and writes no edge visit. Returns
+    (leaf, leaf_depth, caught) and {(row, depth): scores} of each
+    non-terminal level."""
     cand_tab = TM._cand_table_np(cfg.x_size, cfg.y_size, cfg.win_len)
     st = tree.states
     last_spot, last_dir = st.last_spot.numpy(), st.last_dir.numpy()
@@ -161,11 +171,16 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_unti
     to_move, ranks = st.to_move.numpy(), tree.policy_rank.numpy()
     avoid = None if avoid_until is None else avoid_until.numpy()
     path_n, acts_n = path.numpy(), acts.numpy()
+    acts_f_n = None if acts_f is None else acts_f.numpy()
+    u = None if leak_u is None else leak_u.numpy()
+    leak_prob = F(sp.graphSearchCatchUpLeakProb)
     cs_raw, prior_c, child_c, ev_c, rank_c = (x.numpy() for x in scratch)
     B, N, _ = children.shape
+    R = node.shape[0]
+    K = R // B
     D, C = child_c.shape[1:]
     leaf, leaf_depth = node.clone().numpy(), depth.clone().numpy()
-    caught = np.zeros(B, bool)
+    caught = np.zeros(R, bool)
     scores = {}
 
     def fields(b, n):
@@ -174,8 +189,9 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_unti
         spot = cfg.area if spot < 0 or spot > cfg.area else spot
         return bool(term_t[b, n]), cand_tab[spot, min(max(direction, 0), 4)], stats[b, n], self_stats[b, n, TM.F_U]
 
-    for b in range(B):
-        n, d, on = int(node[b]), int(depth[b]), bool(active[b])
+    for r in range(R):
+        b = r // K
+        n, d, on = int(node[r]), int(depth[r]), bool(active[r])
         if on:
             term, cand, ns, self_u = fields(b, n)
             mover = int(to_move[b, n])
@@ -187,10 +203,10 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_unti
                 ev = F(evi)
                 on_board = 0 <= kid < N
                 raw = stats[b, kid] if on_board else np.zeros(8, F)
-                cs_raw[b, d - 1, c], prior_c[b, d - 1, c] = raw, p
-                child_c[b, d - 1, c], ev_c[b, d - 1, c] = kid, ev
+                cs_raw[r, d - 1, c], prior_c[r, d - 1, c] = raw, p
+                child_c[r, d - 1, c], ev_c[r, d - 1, c] = kid, ev
                 if sp.useNoisePruning:
-                    rank_c[b, d - 1, c] = F(ranks[b, n, a]) if a >= 0 else F(1e6)
+                    rank_c[r, d - 1, c] = F(ranks[b, n, a]) if a >= 0 else F(1e6)
                 forbid.append(avoid is not None and a >= 0 and int(avoid[b, min(max(mover - 1, 0), 1), a]) > d)
                 is_live = kid >= 0 and ev > 0
                 kids.append(kid)
@@ -204,18 +220,22 @@ def _emulate(cfg, sp, tree, node, depth, active, path, acts, scratch, avoid_unti
             if term:
                 break
             sel = _scores(sp, ns, self_u, pr, w, live, q_child, forbid)
-            scores[(b, d)] = sel
+            scores[(r, d)] = sel
             best = pick(sel)
-            acts_n[b, d] = best
-            caught[b] = sp.useGraphSearch and kids[best] >= 0 and F(evs[best]) < cvis[best] - F(0.5)
-            if kids[best] < 0 or caught[b]:
+            acts_n[r, d] = best
+            if acts_f_n is not None:
+                acts_f_n[r, d] = cand[best]
+            leaked = u is not None and u[r, d] < leak_prob
+            caught[r] = sp.useGraphSearch and kids[best] >= 0 and F(evs[best]) < cvis[best] - F(0.5) and not leaked
+            if kids[best] < 0 or caught[r]:
                 break
-            ev_t[b, n, cand[best]] = evs[best] + 1
-            path_n[b, d + 1] = kids[best]
+            if acts_f_n is None:
+                ev_t[b, n, cand[best]] = evs[best] + 1
+            path_n[r, d + 1] = kids[best]
             n, d, mover = kids[best], d + 1, 3 - mover
             term, cand, ns, self_u = lanes[best]
             on = d < D
-        leaf[b], leaf_depth[b] = n, d
+        leaf[r], leaf_depth[r] = n, d
     return torch.from_numpy(leaf), torch.from_numpy(leaf_depth), torch.from_numpy(caught), scores
 
 
@@ -401,7 +421,7 @@ def test_search_with_the_emulated_kernel_equals_the_plain_search():
     plain = TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 40, device="cpu")
     orig = TM._descend_interior
     try:
-        TM._descend_interior = lambda *a: _emulate(*a)[:3]
+        TM._descend_interior = lambda *a, **kw: _emulate(*a, **kw)[:3]
         emulated = TM.run_search(cfg, sp, _eval_fn(cfg, evals), roots, 40, device="cpu")
     finally:
         TM._descend_interior = orig
@@ -410,6 +430,117 @@ def test_search_with_the_emulated_kernel_equals_the_plain_search():
             assert torch.equal(a, b), name
     revisited_terminal = plain.is_terminal & (plain.stats[..., TM.S_VISITS] > 1)
     assert revisited_terminal.any(), "no descent ended at a terminal node"
+
+
+def _outputs_equal(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("profile", ["selfplay", "gatekeeper"])
+def test_emulated_kernel_matches_plain_descent_with_the_catch_up_leak(profile):
+    """The leak flag: each row's uniform draw at the node's depth below the
+    float32 probability lets a catch-up through. On the graph-search trees
+    that stop at catch-ups, with leak probability 0.3 and random draws, the
+    emulation equals the plain version, and some descent goes deeper than
+    without the leak."""
+    sp = dataclasses.replace(SearchParams(**PROFILES[profile]), graphSearchCatchUpLeakProb=0.3)
+    cfg, tree, state = _descent_inputs("5x5", sp)
+    B, D = state[0].shape[0], state[5].child_c.shape[1]
+    u = torch.from_numpy(np.random.default_rng(9).random((B, D + 1)).astype(F))
+    runs = []
+    for fn in (TM._descend_interior_plain, lambda *a, **kw: _emulate(*a, **kw)[:3]):
+        t, node, depth, active, path, acts, sc = _copy(tree, state)
+        runs.append((*fn(cfg, sp, t, node, depth, active, path, acts, sc, leak_u=u), path, acts, t.edge_visits, *sc))
+    _outputs_equal(runs[1], runs[0])
+    t, node, depth, active, path, acts, sc = _copy(tree, state)
+    closed = TM._descend_interior_plain(cfg, dataclasses.replace(sp, graphSearchCatchUpLeakProb=0.0), t, node, depth,
+                                        active, path, acts, sc)
+    assert (runs[0][1] > closed[1]).any(), "no descent leaked through a catch-up"
+
+
+def _round_inputs(board, profile, K, leak, call=6):
+    """The tree and the descent inputs of the `call`-th round of a search
+    with K playouts a round (B = 8, 5x5 tinynet or 9x9 uniform), copied as
+    `_simulate_round` hands them to the descent: (cfg, sp, tree, (node,
+    depth, active, path, acts, scratch), acts_f, leak_u)."""
+    cfg, evals = BOARDS[board]
+    sp = dataclasses.replace(SearchParams(**PROFILES[profile]), numSearchThreads=K,
+                             graphSearchCatchUpLeakProb=leak)
+    seen = []
+
+    def copying(c, sp_, tree, node, depth, active, path, acts, scratch, avoid_until=None, leak_u=None,
+                acts_f=None):
+        seen.append(1)
+        if len(seen) == call:
+            copying.got = (TM.Tree(*(x.map(torch.clone) if isinstance(x, tuple) else x.clone() for x in tree)),
+                           tuple(x.clone() for x in (node, depth, active, path, acts))
+                           + (TM.LevelScratch(*(x.clone() for x in scratch)),),
+                           acts_f.clone(), None if leak_u is None else leak_u.clone())
+        return TM._descend_interior_plain(c, sp_, tree, node, depth, active, path, acts, scratch, avoid_until,
+                                          leak_u, acts_f)
+
+    kept = TM._descend_interior
+    TM._descend_interior = copying
+    try:
+        TM.run_search(cfg, sp, _eval_fn(cfg, evals), _random_roots(cfg, 8, seed=4), 2 * call * K, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+    finally:
+        TM._descend_interior = kept
+    tree, state, acts_f, leak_u = copying.got
+    return cfg, sp, tree, state, acts_f, leak_u
+
+
+def _run_rows(fn, cfg, sp, tree, state, acts_f, leak_u):
+    t, node, depth, active, path, acts, sc = _copy(tree, state)
+    af = acts_f.clone()
+    out = fn(cfg, sp, t, node, depth, active, path, acts, sc, leak_u=leak_u, acts_f=af)
+    return (*out, path, acts, af, t.edge_visits, *sc)
+
+
+@pytest.mark.parametrize("board,profile,K,leak", [("5x5", "selfplay", 4, 0.3), ("5x5", "options", 3, 0.0),
+                                                  ("9x9", "default", 2, 0.0)])
+def test_emulated_kernel_matches_plain_descent_on_the_rows_of_a_round(board, profile, K, leak):
+    """The rows flag on a round's own inputs: row r walks game r // K's
+    tree, its path, acts, flat actions (acts_f), scratch rows, leaf and
+    catch-up its own, and no edge visit is written (the round counts them
+    after the descent)."""
+    cfg, sp, tree, state, acts_f, leak_u = _round_inputs(board, profile, K, leak)
+    assert (leak_u is not None) == (leak > 0)
+    want = _run_rows(TM._descend_interior_plain, cfg, sp, tree, state, acts_f, leak_u)
+    got = _run_rows(lambda *a, **kw: _emulate(*a, **kw)[:3], cfg, sp, tree, state, acts_f, leak_u)
+    _outputs_equal(got, want)
+    assert torch.equal(want[6], tree.edge_visits)
+    assert (want[1] >= 2).any(), "no row descended past the first interior level"
+    R = state[0].shape[0]
+    assert R == 8 * K and state[2].sum() > 8
+
+
+def test_rows_of_one_game_at_one_node_count_every_edge_visit():
+    """The forced collision at the row level: each game's descent inputs
+    copied to K = 3 rows, so that the rows of a game meet at every node.
+    Each row walks as the game's one-row descent does, and the round's
+    integer count adds K visits to every edge the game's path passed."""
+    sp = SearchParams()
+    cfg, tree, state = _descent_inputs("5x5", sp)
+    K = 3
+    t1, node, depth, active, path, acts, sc = _copy(tree, state)
+    one = TM._descend_interior_plain(cfg, sp, t1, node, depth, active, path, acts, sc)
+    rows_state = tuple(x.repeat_interleave(K, 0) for x in state[:5]) + (
+        TM.LevelScratch(*(x.repeat_interleave(K, 0) for x in state[5])),)
+    acts_f = torch.zeros_like(rows_state[4])
+    want = _run_rows(TM._descend_interior_plain, cfg, sp, tree, rows_state, acts_f, None)
+    got = _run_rows(lambda *a, **kw: _emulate(*a, **kw)[:3], cfg, sp, tree, rows_state, acts_f, None)
+    _outputs_equal(got, want)
+    for i, (x, y) in enumerate(zip((*one, path, acts), want)):
+        assert torch.equal(x.repeat_interleave(K, 0), y), i
+    for x, y in zip(sc, want[7:]):
+        assert torch.equal(x.repeat_interleave(K, 0), y)
+    assert torch.equal(want[6], tree.edge_visits)
+    counted = tree._replace(edge_visits=tree.edge_visits.clone())
+    TM._count_path_edges(counted, want[3], want[5], want[1], rows_state[2] | True)
+    added = t1.edge_visits - tree.edge_visits  # the one-row descent's interior edge visits
+    assert added.sum() > 0 and torch.equal(counted.edge_visits - tree.edge_visits, K * added)
 
 
 # the kernel's lane choice, and two wrong ones
@@ -512,8 +643,11 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="candidate lanes"):
         descend.descend_interior(sp, cand, tree, node, depth, active, path, acts, wide)
     leak = SearchParams(useGraphSearch=True, graphSearchCatchUpLeakProb=0.1)
-    with pytest.raises(ValueError, match="graphSearchCatchUpLeakProb"):
+    with pytest.raises(ValueError, match="leak_u is needed"):
         descend.descend_interior(leak, cand, tree, node, depth, active, path, acts, scratch)
+    u = torch.rand(node.shape[0], scratch.child_c.shape[1])  # one column short
+    with pytest.raises(ValueError, match="leak_u must have shape"):
+        descend.descend_interior(leak, cand, tree, node, depth, active, path, acts, scratch, leak_u=u)
 
 
 @pytest.mark.parametrize("board", [(5, 5, 4), (7, 7, 5), (9, 6, 5), (15, 15, 5)],

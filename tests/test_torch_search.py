@@ -249,18 +249,24 @@ def test_selection_branches_match_jax(extra):
 @pytest.mark.parametrize(
     "kw,flag",
     [
-        (dict(numSearchThreads=2), "numSearchThreads"),
+        (dict(numSearchThreads=2, useGraphSearch=True, maxPlayoutDepthProp=0.5), "numSearchThreads"),
         (dict(useGraphSearch=True, graphSearchCatchUpLeakProb=0.1), "graphSearchCatchUpLeakProb"),
     ],
 )
 def test_unported_settings_raise(kw, flag):
-    """The settings the port does not take yet raise, naming themselves;
-    those ported since are held to JAX in tests/test_torch_search_settings.py,
-    tests/test_torch_gatekeeper_search.py (uncertainty weighting, policy
-    optimism) and tests/test_torch_search_options.py (noise pruning, root
-    symmetry pruning, the avoid masks)."""
+    """What the search refuses raises, naming the setting: several playouts
+    a round with maxPlayoutDepthProp < 1 under graph search, which the JAX
+    package refuses too (NotImplementedError), and the catch-up leak with
+    neither a generator nor injected draws (ValueError), as every drawing
+    setting. Both are held to JAX in tests/test_torch_search_threads.py and
+    tests/test_torch_search_leak.py; the other settings ported since in
+    tests/test_torch_search_settings.py, tests/test_torch_gatekeeper_search.py
+    (uncertainty weighting, policy optimism) and
+    tests/test_torch_search_options.py (noise pruning, root symmetry pruning,
+    the avoid masks)."""
     roots = TB.init_state(TCFG, 2, "cpu")
-    with pytest.raises(NotImplementedError, match=flag):
+    error = NotImplementedError if flag == "numSearchThreads" else ValueError
+    with pytest.raises(error, match=flag):
         TM.run_search(TCFG, SearchParams(**kw), TM.uniform_eval_fn(TCFG), roots, 4, device="cpu")
 
 

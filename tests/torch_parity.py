@@ -4,7 +4,9 @@ torch on one CPU thread, and, for the tests that hold the search
 profile, the JAX search run with its root draws recorded, those draws handed
 to the port as `RootDraws`, and trees converted between the two packages.
 
-The JAX search draws at the root only (graphSearchCatchUpLeakProb is 0): the
+The JAX search draws at the root and, with graphSearchCatchUpLeakProb > 0,
+once a playout or round for the catch-up leak (`leak_draws` replays those
+from the key chain). At the root it draws the
 root symmetries from `k_pick` and the Dirichlet noise's gamma sample from
 `k_noise`, both split off the search key (`run_search` :2422 `k_init`;
 `init_tree` :797 `k_eval`, `k_noise`; `_root_eval` :460 `k_pick`; for a
@@ -99,6 +101,26 @@ def jax_search(cfg, jsp, jev, jroots, visits, key, max_nodes=None, **reuse):
                              gamma_reused=_gamma_draw(calls, 1, k_noise2) if noise else None)
     assert len(calls) == (0 if not noise else 1 if reuse.get("reuse_tree") is None else 2)
     return jtree, diag, draws
+
+
+def round_keys(key):
+    """The keys of the rounds of a search loop that starts from `key`: each
+    round splits (round key, the rest)."""
+    while True:
+        k, key = jax.random.split(key)
+        yield k
+
+
+def leak_draws(key, K):
+    """`draw_leak` replaying the leak draws of JAX's rounds from `key`."""
+    keys = round_keys(key)
+
+    def draw(rows, cols):
+        k_leak = jax.random.split(next(keys), 3)[0]
+        k_u = jax.random.fold_in(jax.random.fold_in(k_leak, 0), 1) if K == 1 else jax.random.fold_in(k_leak, 1)
+        return torch.from_numpy(np.array(jax.random.uniform(k_u, (rows, cols))))
+
+    return draw
 
 
 def torch_states(jstates):
