@@ -41,8 +41,8 @@ the run with a non-zero exit and a traceback:
      walls, the actor's share), with the launch counts reset before and
      read after (one descent launch per simulation run) and the readouts
      checked on every move; then the rest of the actor: games that finish
-     (B=64 16-move segments at 16 visits until every game ended, then
-     finalize_targets)
+     (B=64 16-move segments at 8 visits, 16 until phase 16 came, until
+     every game ended, then finalize_targets)
      with both kernels against both plain versions under one generator seed
      (every field identical), card against CPU at float32 on a B=8 4-move
      segment at 32 visits (64 until phase 15 met a slow host) with the
@@ -138,7 +138,8 @@ the run with a non-zero exit and a traceback:
      tree); (c) a float32 book on the card and on the CPU (batch 8, 16
      visits, 2 rounds), the same keys and edges, floats within BOOK_TOL;
      (d) dataminesgfs (one B=64 batch at 200 visits over REF_SGFS's
-     games), demoplay (1 game at 16 visits), trystartposes over
+     games), demoplay (1 game at 8 visits; 16 until phase 16 came),
+     trystartposes over
      datamine's output, sampleinitializations -evaluate,
      perfcount.search_counters (B=64, 64 visits, 3 moves) and
      flops_accounting with a B=64 forward's share of the bf16 peak; (e)
@@ -189,17 +190,34 @@ the run with a non-zero exit and a traceback:
      genmove of the GTP engine at 200 visits with numSearchThreads 4 by
      -override-config, and a B=64 200-visit search under
      `gaussian_prior_eval_fn`, their launches counted;
+ 16. the paths no earlier phase ran (`phase_rectangles`, after 15): (a)
+     a 5x7 board (win 4) through `run_search` at B=64, 200 visits, with
+     the tiny net (tests/goldens/tinynet, bf16, for_selfplay()) and the
+     uniform evaluator, inside `PathCopies`, then each whole search at 64
+     visits with both kernels and with both plain versions, each kernel
+     held to its plain version on the copies and timed; (b) the selfplay
+     command with bSizes 4,5 (B=32, 8 visits, quotas of 500 and 1000
+     rows), `shuffle` per size and `run_training_mixed` for 20 steps; (c)
+     kill and resume: the daemon (run-s5200, B=64, 8 visits, 256-row
+     shards) and `python -m katacoffee_tpu_torch train` (b1c6) as process
+     groups on the card, each killed by SIGKILL and started again, in a
+     thread beside (a), (b) and (d): seconds to the first shard and the
+     first checkpoint after each start, the step resumed; (d) GTP on
+     `boardsize 5:7` and `kata-raw-nn` twice, the second from the cache
+     with no kernel launched. Paid for by phase 5's finishing games, cut
+     from 16 visits to 8, and phase 11's demoplay, from 16 visits to 8;
  14. one log line a timed kernel row (us, bound, launch floor, library
      call; for the descent the deepest game's levels and us a level over
      the floor); the trainer's, the GTP engine's, the analysis engine's,
-     the gatekeeper's, the book's, the contribution bus's and phase 15's
-     numbers as one JSON line each, the kernel table as one JSON line
+     the gatekeeper's, the book's, the contribution bus's, phase 15's and
+     phase 16's numbers as one JSON line each, the kernel table as one JSON line
      (launches and check from phase 12 (a), times on its copies, the
      earlier paths' launches and the other shapes and trees beside them,
      each row with `floor_ms`, each descent row with `max_levels` and
      `us_per_level`; then a row for each of phase 15's descent
      instantiations, rows of K = 2 and K = 4 and the leak with one and two
-     playouts a round, each with its own run's launches and timed copy),
+     playouts a round, each with its own run's launches and timed copy,
+     and the gather and descent rows of phase 16's rectangle),
      then the result line; then the process leaves by `os._exit` with
      main's code, its output flushed and every process it started ended,
      without the interpreter's teardown (a teardown of this process, after
@@ -1074,8 +1092,8 @@ def phase_selfplay(dev, cfg, batch=512, visits=600, moves=2, segments=1):
     return out
 
 
-def phase_selfplay_ab(dev, cfg, batch=64, visits=16, moves=16, max_segments=4):
-    """Games that finish: B=64 segments of 16 moves at 16 visits from empty
+def phase_selfplay_ab(dev, cfg, batch=64, visits=8, moves=16, max_segments=4):
+    """Games that finish: B=64 segments of 16 moves at 8 visits from empty
     boards until every game has ended at least once, then finalize_targets,
     once with both kernels and once with both plain versions, under one
     generator seed. Every field of every Trajectory and of the TrainingBatch
@@ -2797,7 +2815,7 @@ def compare_books(label, a, b, tol=BOOK_TOL) -> float:
 
 def phase_book(dev, grow_rounds=4, grow_visits=16, resume_rounds=1, batch=64, visits=300, snapshot_every=100,
                profile_sims=5, cpu_batch=8, cpu_visits=16, cpu_rounds=2, mine_visits=200, mine_positions=50,
-               demo_visits=16, try_visits=16, init_num=64, counter_batch=64, counter_visits=64, counter_moves=3,
+               demo_visits=8, try_visits=16, init_num=64, counter_batch=64, counter_visits=64, counter_moves=3,
                flops_sims=4, ref_batch=64, ref_visits=100, ref_profile_sims=3):
     """The opening book, this slice's main path, then the other frontends of
     the slice. (a) `genbook -model run-s5200` (b6c96 bf16, for_tests_v2(),
@@ -2820,7 +2838,7 @@ def phase_book(dev, grow_rounds=4, grow_visits=16, resume_rounds=1, batch=64, vi
     the B=64 rounds. (c) A float32 book on the card
     and on the CPU (batch 8, 16 visits, 2 rounds): the same keys and edges,
     floats within BOOK_TOL. (d) dataminesgfs (one B=64 batch at 200 visits
-    over the games of REF_SGFS), demoplay (1 game at 16 visits),
+    over the games of REF_SGFS), demoplay (1 game at 8 visits),
     trystartposes over datamine's output, sampleinitializations -evaluate,
     perfcount.search_counters (B=64, 64 visits, 3 moves) and
     flops_accounting (a B=64 forward; FLOPs a row, the share of the bf16
@@ -3689,6 +3707,385 @@ def phase_search_threads(dev, batch=64, visits=200, threads=(2, 4), snapshot_eve
             "gaussian": {"seconds": gauss_s, "launches": gauss_copies.launches}}
 
 
+TINYNET_DIR = "tests/goldens/tinynet"
+RECT = (5, 7, 4)  # x, y, win length: a rectangle whose axes differ
+# the daemon of phase 16 (c) in a process of its own: run_selfplay_daemon
+# with small shards (max_rows_per_file; the selfplay command keeps the JAX
+# command's 65,536 rows a shard and takes no key for it, so its first shard
+# comes at its end), on the card, with the model its models/ links
+DAEMON_CODE = """
+from katacoffee_tpu_torch.command.selfplay import SelfplayConfig, run_selfplay_daemon
+from katacoffee_tpu_torch.game.board import GameConfig
+from katacoffee_tpu_torch.search.params import SearchParams
+from katacoffee_tpu_torch.utils.logger import Logger
+
+spc = SelfplayConfig(batch_size={batch}, num_sims={visits}, moves_per_segment={moves}, segments_per_flush=1,
+                     max_rows_per_file={rows_per_file}, seed={seed})
+run_selfplay_daemon({base!r}, GameConfig(5, 5, 4), SearchParams.for_selfplay(), spc, Logger(log_to_stdout=True))
+"""
+
+
+def spawn_group(argv, log_path):
+    """`argv` in a process group of its own (so that a kill of the group
+    reaches every process it starts), its output to `log_path`."""
+    with open(log_path, "ab") as out:
+        return subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def kill_group(proc) -> None:
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait(timeout=60)
+
+
+def wait_until(proc, cond, what: str, log_path: str, timeout: float = 240.0) -> float:
+    """Seconds until `cond()` holds, polled; fails if `proc` ends first."""
+    t = time.monotonic()
+    while time.monotonic() - t < timeout:
+        if cond():
+            return time.monotonic() - t
+        if proc.poll() is not None:
+            raise AssertionError(f"{what}: the process exited {proc.returncode} first:\n"
+                                 f"{Path(log_path).read_text()[-3000:]}")
+        time.sleep(0.05)
+    raise AssertionError(f"{what}: not within {timeout} s:\n{Path(log_path).read_text()[-3000:]}")
+
+
+def shard_rows(paths) -> int:
+    """Rows of the shards, each loaded whole, its row keys of one length."""
+    import numpy as np
+
+    total = 0
+    for p in paths:
+        with np.load(p) as z:
+            lengths = {k: z[k].shape[0] for k in z.files if k not in ("schema_version", "board_shape")}
+        if len(set(lengths.values())) != 1:
+            raise AssertionError(f"{p}: a partial shard, row keys of lengths {lengths}")
+        total += next(iter(lengths.values()))
+    return total
+
+
+def checkpoint_step(path) -> int:
+    """The train_step of a checkpoint, which loads whole into a b1c6 state
+    on the CPU."""
+    from katacoffee_tpu_torch.dataio.checkpoints import load_checkpoint
+    from katacoffee_tpu_torch.nn.configs import get_model_spec
+    from katacoffee_tpu_torch.nn.model import CoffeeNet
+    from katacoffee_tpu_torch.train.train import init_train_state
+
+    state, meta = load_checkpoint(path, init_train_state(CoffeeNet(get_model_spec("b1c6"), win_len=4)))
+    if state.step != int(meta["train_step"]):
+        raise AssertionError(f"{path}: step {state.step}, train_step {meta['train_step']}")
+    return int(meta["train_step"])
+
+
+def kill_and_resume(root, batch=64, visits=8, moves=26, rows_per_file=256, train_batch=8, steps_after=5) -> dict:
+    """Phase 16 (c), JAX tests/test_loop_faults.py's contracts on the card:
+    the selfplay daemon (DAEMON_CODE, run-s5200 bf16) and the trainer
+    (`python -m katacoffee_tpu_torch train`, b1c6), each a process group of
+    its own on cuda, killed by SIGKILL and started again. The trainer starts
+    with the first daemon and waits for shuffled rows, as in the loop; the
+    second daemon runs beside the trainer's kill and bounded rerun."""
+    import signal
+
+    from katacoffee_tpu_torch.dataio.shuffle import shuffle_data
+    from katacoffee_tpu_torch.dataio.trainingwrite import iter_shards
+
+    base = os.path.join(root, "faults")
+    os.makedirs(os.path.join(base, "models"))
+    # the trainer waits for rows in an existing shuffled dir (a missing one
+    # ends it, in the JAX trainer as here)
+    os.makedirs(os.path.join(base, "shuffleddata"))
+    os.symlink(os.path.abspath(MODEL_DIR), os.path.join(base, "models", os.path.basename(MODEL_DIR)))
+    tdata = os.path.join(base, "selfplay", os.path.basename(MODEL_DIR), "tdata")
+    ckpt = os.path.join(base, "train", "run", "checkpoint.ckpt")
+    logs = os.path.join(root, "faults_{}.log")
+    train = [sys.executable, "-m", "katacoffee_tpu_torch", "train", "-base-dir", base, "-config", TRAIN_CFG,
+             "-override-config", f"model=b1c6,batchSize={train_batch},stepsPerExport=1000000"]
+    out = {}
+
+    def daemon(seed):
+        code = DAEMON_CODE.format(batch=batch, visits=visits, moves=moves, rows_per_file=rows_per_file, seed=seed,
+                                  base=base)
+        return spawn_group([sys.executable, "-c", code], logs.format(f"daemon{seed}"))
+
+    def shards():
+        return list(iter_shards(tdata)) if os.path.isdir(tdata) else []
+
+    procs = []
+    try:
+        # the first daemon, and the trainer waiting for rows
+        procs += [daemon(1), spawn_group(train, logs.format("train1"))]
+        first, trainer = procs
+        t_train = time.monotonic()
+        out["daemon_first_shard_s"] = wait_until(first, lambda: len(shards()) >= 2, "faults (c) daemon",
+                                                 logs.format("daemon1"))
+        kill_group(first)
+        before = shards()
+        rows_before = shard_rows(before)
+        with open(os.path.join(tdata, ".junk.npz.tmp"), "wb") as f:
+            f.write(b"half a shard")
+        if any(p.endswith(".tmp") for p in shards()):
+            raise AssertionError("faults (c): iter_shards lists a temp file")
+        shuffle_data([tdata], os.path.join(base, "shuffleddata"), min_rows=10**9, seed=0)
+        rows_in = time.monotonic()
+        # a fresh daemon into the same tree, beside the trainer's kill and rerun
+        t_second = time.time()
+        procs.append(daemon(2))
+        second = procs[-1]
+        wait_until(trainer, lambda: os.path.exists(ckpt), "faults (c) trainer", logs.format("train1"))
+        out["train_first_checkpoint_s"] = time.monotonic() - t_train
+        out["train_first_checkpoint_after_rows_s"] = time.monotonic() - rows_in
+        wait_until(trainer, lambda: os.path.exists(ckpt + ".prev"), "faults (c) rotation", logs.format("train1"))
+        # stopped where both generations are on disk, then killed
+        while True:
+            os.killpg(trainer.pid, signal.SIGSTOP)
+            if os.path.exists(ckpt) and os.path.exists(ckpt + ".prev"):
+                break
+            os.killpg(trainer.pid, signal.SIGCONT)
+            time.sleep(0.01)
+        kill_group(trainer)
+        step_at_kill = checkpoint_step(ckpt)
+        prev_step = checkpoint_step(ckpt + ".prev")
+
+        # the trainer again, bounded: it resumes from the persisted step
+        t = time.monotonic()
+        t_rerun = time.time()
+        rerun = subprocess.run(train[:-1] + [train[-1].replace("model=", f"maxSteps={steps_after},model=")],
+                               capture_output=True, text=True, timeout=300)
+        out["train_resumed_s"] = time.monotonic() - t
+        out["train_resumed_checkpoint_s"] = os.path.getmtime(ckpt) - t_rerun
+        resumed = checkpoint_step(ckpt)
+        if rerun.returncode != 0 or f"resumed from step {step_at_kill}" not in rerun.stdout or \
+                resumed != step_at_kill + steps_after or prev_step >= step_at_kill:
+            raise AssertionError(f"faults (c): rerun exit {rerun.returncode}, killed at {step_at_kill} (.prev "
+                                 f"{prev_step}), resumed to {resumed}\n{rerun.stdout[-2000:]}\n{rerun.stderr[-2000:]}")
+        wait_until(second, lambda: len(shards()) > len(before), "faults (c) second daemon", logs.format("daemon2"))
+        kill_group(second)
+    finally:
+        for proc in procs:
+            kill_group(proc)
+    after = shards()
+    out["daemon_resumed_first_shard_s"] = min(os.path.getmtime(p) for p in after if p not in before) - t_second
+    rows_after = shard_rows(after)
+    stats = shuffle_data([tdata], os.path.join(base, "shuffled_all"), min_rows=10**9, seed=0)
+    if not set(before) < set(after) or stats["rows_out"] != rows_after or rows_after < rows_before:
+        raise AssertionError(f"faults (c): {len(before)} shards then {len(after)}, {rows_before} rows then "
+                             f"{rows_after}, shuffled {stats['rows_out']}")
+    out.update(shards_before=len(before), rows_before=rows_before, shards_after=len(after), rows_after=rows_after,
+               step_at_kill=step_at_kill, prev_step=prev_step, resumed_step=resumed)
+    log(f"faults (c): daemon (B={batch}, {visits} visits, run-s5200) first shard {out['daemon_first_shard_s']:.1f} s "
+        f"after its start, SIGKILL with {len(before)} shards ({rows_before} rows) whole; the second daemon's first "
+        f"shard {out['daemon_resumed_first_shard_s']:.1f} s after its start, {len(after)} shards ({rows_after} rows) "
+        f"shuffled; trainer (b1c6, B={train_batch}) first checkpoint {out['train_first_checkpoint_s']:.1f} s after "
+        f"its start ({out['train_first_checkpoint_after_rows_s']:.1f} s after its rows), SIGKILL at step "
+        f"{step_at_kill} (.prev {prev_step}), the bounded rerun resumed and wrote step {resumed} "
+        f"{out['train_resumed_checkpoint_s']:.1f} s after its start, exited after {out['train_resumed_s']:.1f} s")
+    return out
+
+
+def phase_rectangles(dev, root, batch=64, visits=200, ab_visits=64, snapshot_every=25, mixed_batch=32,
+                     mixed_visits=8, mixed_rows=1500, mixed_steps=20, gtp_visits=64):
+    """Phase 16, the paths the port had not run on the card. (a) 5x7 (win 4)
+    `run_search` at B=64, 200 visits, with the tiny net (bf16,
+    `for_selfplay()`: 4 root symmetries of the rectangle's 4) and the
+    uniform evaluator (`SearchParams()`), inside `PathCopies` (one descent
+    launch a playout, at most two gathers a search); then each whole search
+    again at 64 visits with both kernels and with both plain versions
+    (identical games counted, total variation within TV_MAX); each kernel
+    held to its plain version on the copies and timed, after (c). (b) The
+    selfplay command's `main` with bSizes 4,5 (bSizeRelProbs 1,2, bWinLens
+    3,4; no model for either size, so the uniform evaluator) at B=32, 8
+    visits, 26-move segments, 1500 rows a pass (quotas 500 and 1000, one
+    segment and two), one pass; the rows of each size read back
+    (`board_shape` (x, y, w), boards [y, x]); `shuffle` per size;
+    `run_training_mixed` (b1c6) for 20 steps, the steps of each size
+    counted. (c) `kill_and_resume`, in a thread from the start of the
+    phase. (d) A GTP session on `boardsize 5:7` (run-s5200 bf16 built for
+    the rectangle, configs/gtp_example.cfg's search at 64 visits): a
+    genmove, then `kata-raw-nn 0` twice, the second served by the cache:
+    one hit more, no forward, and under torch.profiler no kernel launched."""
+    import json as json_mod
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from katacoffee_tpu_torch.command import selfplay as selfplay_cmd
+    from katacoffee_tpu_torch.command import train as train_cmd
+    from katacoffee_tpu_torch.command.gtp import GTPEngine
+    from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+    from katacoffee_tpu_torch.dataio.shuffle import shuffle_data
+    from katacoffee_tpu_torch.dataio.trainingwrite import iter_shards
+    from katacoffee_tpu_torch.game.board import GameConfig
+    from katacoffee_tpu_torch.game.symmetry import num_symmetries
+    from katacoffee_tpu_torch.ops.gather import gather_rows_plain
+    from katacoffee_tpu_torch.program.setup import load_search_params
+    from katacoffee_tpu_torch.search import mcts
+    from katacoffee_tpu_torch.search.params import SearchParams
+    from katacoffee_tpu_torch.train.train import TrainConfig
+    from katacoffee_tpu_torch.utils.config import ConfigParser
+    from katacoffee_tpu_torch.utils.logger import Logger
+
+    cfg = GameConfig(*RECT)
+    out = {"board": list(RECT)}
+    with ThreadPoolExecutor(1) as pool:
+        faults = pool.submit(kill_and_resume, root)
+        try:
+            # (a) the search on the rectangle, beside (c)
+            tiny = load_exported_model(TINYNET_DIR, dev)[0]
+            evals = {"tinynet": (mcts.make_nn_eval_fn(cfg, tiny), SearchParams.for_selfplay()),
+                     "uniform": (mcts.uniform_eval_fn(cfg), SearchParams())}
+            roots = random_positions(cfg, batch, seed=16)
+            if num_symmetries(cfg) != 4 or SearchParams.for_selfplay().rootNumSymmetriesToSample < 4:
+                raise AssertionError("rect (a): the rectangle's root symmetries are not all sampled")
+            copies, runs = {}, {}
+            for label, (ev, sp) in evals.items():
+                with PathCopies(snapshot_every) as c:
+                    torch.cuda.synchronize()
+                    t = time.monotonic()
+                    tree = mcts.run_search(cfg, sp, ev, roots, visits, device=dev,
+                                           generator=torch.Generator(device=dev).manual_seed(16))
+                    torch.cuda.synchronize()
+                    wall = time.monotonic() - t
+                if not torch.isfinite(tree.stats).all() or tree.prior.shape[-1] != cfg.policy_size or not (
+                        tree.stats[:, 0, mcts.S_VISITS] == visits + 1).all():
+                    raise AssertionError(f"rect (a) {label}: a root without {visits + 1} visits or a bad row")
+                c.check_launches(f"rect (a) {label}", batch)
+                if c.launches["descend_interior"] != visits or c.launches["gather_rows"] > 2:
+                    raise AssertionError(f"rect (a) {label}: launches {c.launches} for {visits} playouts")
+                copies[label] = c
+                runs[label] = {"seconds": wall, "root_vps": batch * visits / wall, "launches": c.launches,
+                               "sims": c.sims}
+                log(f"rect (a) {label}: {cfg} B={batch} {visits} visits {wall:.3f} s ({runs[label]['root_vps']:.1f} "
+                    f"root visits/s, beside (c)), launches {c.launches}")
+            # the whole search with both kernels against both plain versions
+            kept = (mcts._descend_interior, mcts.gather_rows)
+            for label, (ev, sp) in evals.items():
+                found = {}
+                for name, fns in (("kernels", kept), ("plain", (mcts._descend_interior_plain, gather_rows_plain))):
+                    mcts._descend_interior, mcts.gather_rows = fns
+                    try:
+                        tree = mcts.run_search(cfg, sp, ev, roots, ab_visits, device=dev,
+                                               generator=torch.Generator(device=dev).manual_seed(17))
+                    finally:
+                        mcts._descend_interior, mcts.gather_rows = kept
+                    found[name] = mcts.root_visit_counts(tree).float()
+                same = int((found["kernels"] == found["plain"]).all(-1).sum())
+                tv = 0.5 * (found["kernels"] - found["plain"]).abs().sum(-1).max().item() / ab_visits
+                log(f"rect (a) {label}: B={batch} {ab_visits} visits, both kernels against both plain versions: "
+                    f"{same} of {batch} games with identical root visits, max total variation {tv:.4f}")
+                if tv > TV_MAX:
+                    raise AssertionError(f"rect (a) {label}: kernel search parts from plain: TV {tv}")
+                runs[label].update(ab_identical=same, ab_games=batch, ab_tv=tv)
+
+            # (b) mixed board sizes through the selfplay command, then training
+            mixed = os.path.join(root, "mixed")
+            os.makedirs(mixed)
+            config = os.path.join(mixed, "mixed.cfg")
+            Path(config).write_text(
+                f"bSizes = 4,5\nbSizeRelProbs = 1,2\nbWinLens = 3,4\nrowsPerPass = {mixed_rows}\nmaxPasses = 1\n"
+                f"numParallelGames = {mixed_batch}\nmaxVisits = {mixed_visits}\nmovesPerSegment = 26\n"
+                f"segmentsPerFlush = 1\nseed = 1\n")
+            t = time.monotonic()
+            with PathCopies(10**9) as c:
+                selfplay_cmd.main(["-output-dir", mixed, "-config", config], device=dev)
+                torch.cuda.synchronize()
+            sp_s = time.monotonic() - t
+            if c.launches["descend_interior"] != c.sims or c.sims == 0:
+                raise AssertionError(f"rect (b): launches {c.launches} for {c.sims} playouts")
+            sizes = {"4x4w3": GameConfig(4, 4, 3), "5x5w4": GameConfig(5, 5, 4)}
+            rows = {}
+            for tag, scfg in sizes.items():
+                d = os.path.join(mixed, "selfplay", "random", "tdata_" + tag)
+                n = 0
+                for shard in iter_shards(d):
+                    with np.load(shard) as z:
+                        if tuple(z["board_shape"]) != tuple(scfg) or z["board"].shape[1:] != (scfg.y_size,
+                                                                                              scfg.x_size):
+                            raise AssertionError(f"rect (b) {shard}: board_shape {z['board_shape']}, boards "
+                                                 f"{z['board'].shape}")
+                        n += int(z["weight"].shape[0])
+                rows[tag] = n
+                shuffle_data([d], os.path.join(mixed, "shuffleddata", tag), min_rows=10**9, seed=0)
+            if not rows["5x5w4"] > rows["4x4w3"] > 0:
+                raise AssertionError(f"rect (b): rows {rows} (quotas 1:2)")
+            stepped = {}
+            kept_step = train_cmd.make_train_step
+
+            def counted(scfg, *args):
+                step = kept_step(scfg, *args)
+
+                def run(state, b, generator):
+                    stepped[scfg] = stepped.get(scfg, 0) + 1
+                    return step(state, b, generator)
+                return run
+
+            train_cmd.make_train_step = counted
+            try:
+                t = time.monotonic()
+                trc = train_cmd.TrainerConfig(model="b1c6", batch_size=64, max_steps=mixed_steps,
+                                              steps_per_export=10**9, checkpoint_every=10**9)
+                steps = train_cmd.run_training_mixed(mixed, list(sizes.values()), TrainConfig(), trc, Logger(),
+                                                     device=dev)
+                torch.cuda.synchronize()
+                train_s = time.monotonic() - t
+            finally:
+                train_cmd.make_train_step = kept_step
+            by_size = {f"{s.x_size}x{s.y_size}w{s.win_len}": n for s, n in stepped.items()}
+            metrics = [json_mod.loads(line)
+                       for line in Path(mixed, "train", "run", "metrics_train.json").read_text().splitlines()]
+            if steps != mixed_steps or sum(by_size.values()) != steps or set(by_size) != set(sizes) or not all(
+                    np.isfinite(m["loss"]) for m in metrics):
+                raise AssertionError(f"rect (b): {steps} steps, by size {by_size}, metrics {metrics}")
+            out["mixed"] = {"rows": rows, "selfplay_s": sp_s, "steps": by_size, "train_s": train_s,
+                            "launches": c.launches, "sims": c.sims}
+            log(f"rect (b): selfplay bSizes 4,5 (B={mixed_batch}, {mixed_visits} visits, {mixed_rows} rows a pass) "
+                f"{sp_s:.1f} s, rows {rows}, {c.sims} playouts, launches {c.launches}; run_training_mixed {steps} "
+                f"steps {train_s:.1f} s, by size {by_size}")
+
+            # (d) GTP on boardsize 5:7, kata-raw-nn twice
+            model = load_exported_model(MODEL_DIR, dev)[0]
+            sp = load_search_params(ConfigParser(GTP_CFG), SearchParams.for_tests_v2())
+            raw = mcts.make_cached_raw_forward_fn(cfg, model)
+            forwards = []
+            kept_forward = raw._forward
+            raw._forward = lambda states: forwards.append(1) or kept_forward(states)
+            eng = GTPEngine(cfg, sp, mcts.make_nn_eval_fn(cfg, model), max_visits=gtp_visits, raw_fwd=raw,
+                            device=dev)
+            with PathCopies(10**9) as g:
+                session = gtp_session(eng, ["boardsize 5:7", "play B C3 north", "genmove white", "kata-raw-nn 0"])
+            hits, misses, n_fwd = raw.hits, raw.misses, len(forwards)
+            with PathCopies(10**9) as g2:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    again = gtp_session(eng, ["kata-raw-nn 0"])
+            launched = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_EVENTS)
+            if any(not r.startswith("=") for _, r, _ in session + again) or again[0][1] != session[-1][1] or \
+                    raw.hits != hits + 1 or raw.misses != misses or len(forwards) != n_fwd or launched or \
+                    any(g2.launches.values()) or g.launches["descend_interior"] != g.sims:
+                raise AssertionError(f"rect (d): replies {session + again}, cache {hits}/{misses} -> "
+                                     f"{raw.hits}/{raw.misses}, forwards {n_fwd} -> {len(forwards)}, launches "
+                                     f"{launched}, counters {g2.launches}")
+            out["gtp"] = {"visits": gtp_visits, "genmove_s": session[2][2], "genmove": session[2][1],
+                          "launches": g.launches, "raw_nn_s": [session[3][2], again[0][2]],
+                          "cache": {"hits": raw.hits, "misses": raw.misses}, "second_raw_nn_launches": launched}
+            log(f"rect (d): gtp boardsize 5:7, genmove white {session[2][1]!r} in {session[2][2]:.3f} s at "
+                f"{gtp_visits} visits (descend_interior {g.launches['descend_interior']}), kata-raw-nn "
+                f"{session[3][2]:.3f} s then {again[0][2]:.3f} s from the cache (hits {raw.hits}, misses "
+                f"{raw.misses}, no forward, {launched} kernel launches, counters {g2.launches})")
+        finally:
+            out["faults"] = faults.result()
+
+    # (a) the kernels on the rectangle's copies, after (c) ended
+    out["runs"] = runs
+    out["checks"] = {label: c.check(f"rect (a) {label}", cfg) for label, c in copies.items()}
+    return out
+
+
 def gather_row(t: dict, floor: dict) -> dict:
     """A gather timing with the launch floor as the gather is timed (a CUDA
     graph)."""
@@ -3803,11 +4200,21 @@ def main() -> int:
         f"{k} {v['launches_per_sim']:.0f}" for k, v in profiles.items()) + "; host syncs " + ", ".join(
         f"{k} {v['syncs_per_sim']:.2f}" for k, v in profiles.items()))
 
-    log("phase 15: K playouts a round, the catch-up leak and the gaussian evaluator (this slice's main path), "
-        "their kernels' inputs, card against CPU, the GTP engine with numSearchThreads = 4")
+    log("phase 15: K playouts a round, the catch-up leak and the gaussian evaluator, their kernels' inputs, card "
+        "against CPU, the GTP engine with numSearchThreads = 4")
     t = time.monotonic()
     threads = phase_search_threads(dev)
     threads["phase_s"] = time.monotonic() - t
+
+    log("phase 16: a 5x7 board through the search and both kernels, mixed board sizes through the selfplay command "
+        "and the trainer, kill and resume of the daemon and the trainer, GTP on boardsize 5:7 and its cache")
+    t = time.monotonic()
+    work = tempfile.mkdtemp(prefix="katacoffee_smoke_")
+    try:
+        rect = phase_rectangles(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rect["phase_s"] = time.monotonic() - t
 
     # the kernels line reports the main path (phase 12 (a), the contribute
     # cycle): its launches, and each kernel's check and times on the inputs
@@ -3968,8 +4375,48 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": None, "floor_ms": t["floor_ms"], "max_levels": t["max_levels"],
             "us_per_level": t["us_per_level"], "shape": t["shape"], "rows": rows, "near_tie_flips": t["flips"],
         })
+    # phase 16's rectangle (5x7): the tiny net's for_selfplay() run, the
+    # uniform evaluator's copies beside it
+    rect_entries = []
+    for kernel in ("gather", "descent"):
+        by_eval = {label: c[kernel] for label, c in rect["checks"].items()}
+        key = max(by_eval["tinynet"])
+        run = rect["runs"]["tinynet"]
+        if kernel == "gather":
+            t = gather_row(by_eval["tinynet"][key], floor)
+            entry = {"name": "gather_rows rect 5x7x4", "launches": run["launches"]["gather_rows"],
+                     "max_abs_err": rect["checks"]["tinynet"]["gather_max_abs_err"], "shape": list(key),
+                     "source": "katacoffee_tpu_torch/ops/gather_kernel.cu", "library_ms": t["library_ms"],
+                     "other_shapes": {f"uniform {list(k)}": gather_row(v, floor)
+                                      for k, v in by_eval["uniform"].items()}}
+        else:
+            t = descent_row(by_eval["tinynet"][key], floor)
+            entry = {"name": "descend_interior rect 5x7x4", "launches": run["launches"]["descend_interior"],
+                     "also_replaces": "katacoffee_tpu/search/mcts.py:1267", "max_abs_err": t["max_abs_err"],
+                     "source": "katacoffee_tpu_torch/ops/descend_kernel.cu", "library_ms": None,
+                     "shape": t["shape"], "max_levels": t["max_levels"], "us_per_level": t["us_per_level"],
+                     "near_tie_flips": sum(v["flips"] for v in by_eval.values() for v in v.values()),
+                     "games_compared": sum(v["games"] for v in by_eval.values() for v in v.values()),
+                     "levels_compared": sum(v["levels_compared"] for v in by_eval.values() for v in v.values()),
+                     "other_trees": {f"uniform B={b}": descent_row(v, floor) for b, v in by_eval["uniform"].items()}}
+        entry.update(route="cuda", replaces="katacoffee_tpu/ops/gather.py:39", ms=t["ms"], plain_ms=t["plain_ms"],
+                     bound_ms=t["bound_ms"], bound_by="bytes", floor_ms=t["floor_ms"],
+                     simulations_run=run["sims"])
+        rect_entries.append(entry)
+    faults, mixed = rect["faults"], rect["mixed"]
+    log(f"phase 16 (5x7 B=64 200 visits): tinynet {rect['runs']['tinynet']['seconds']:.3f} s, uniform "
+        f"{rect['runs']['uniform']['seconds']:.3f} s; mixed sizes rows {mixed['rows']}, steps {mixed['steps']}; "
+        f"daemon first shard {faults['daemon_first_shard_s']:.1f} s, again "
+        f"{faults['daemon_resumed_first_shard_s']:.1f} s; trainer first checkpoint "
+        f"{faults['train_first_checkpoint_s']:.1f} s, killed at step "
+        f"{faults['step_at_kill']}, resumed to {faults['resumed_step']} in {faults['train_resumed_s']:.1f} s; gtp "
+        f"kata-raw-nn {rect['gtp']['raw_nn_s'][0]:.3f} s then {rect['gtp']['raw_nn_s'][1]:.3f} s from the cache; "
+        f"phase 16 {rect['phase_s']:.1f} s")
     log("kernel rows (device us a call):")
     log_kernel_rows(gather_entry, descend_entry)
+    for e in rect_entries:
+        log(f"  {e['name']} {e['shape']}: {e['ms'] * 1e3:.2f} us, bound {e['bound_ms'] * 1e3:.3f}, floor "
+            f"{e['floor_ms'] * 1e3:.2f}, plain {e['plain_ms'] * 1e3:.2f}, launches {e['launches']}")
     for e in threads_entries:
         log(f"  {e['name']} ({e['rows']} rows): {e['ms'] * 1e3:.2f} us, bound {e['bound_ms'] * 1e3:.2f}, floor "
             f"{e['floor_ms'] * 1e3:.2f}, plain {e['plain_ms'] * 1e3:.2f}, deepest row {e['max_levels']} levels, "
@@ -3988,7 +4435,8 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"search_threads": {k: v for k, v in threads.items() if k not in ("checks",)}}, default=str),
           flush=True)
-    print(json.dumps({"kernels": [gather_entry, descend_entry, *threads_entries]}), flush=True)
+    print(json.dumps({"rectangles": {k: v for k, v in rect.items() if k != "checks"}}, default=str), flush=True)
+    print(json.dumps({"kernels": [gather_entry, descend_entry, *threads_entries, *rect_entries]}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -515,7 +515,9 @@ class GTPEngine:
             syms = [int(which)]
             if not 0 <= syms[0] < nsym:
                 raise ValueError(f"symmetry must be 0-{nsym - 1} or 'all'")
-        state = self.engine.state
+        # the position's symmetries and legal mask on the host: a position
+        # the cache holds then runs nothing on the device
+        state = self.engine.state.map(lambda x: x.cpu())
         to_move = self.engine.to_move
         blocks = []
         for sym in syms:

@@ -291,11 +291,13 @@ def make_raw_forward_fn(cfg: GameConfig, model):
     returning every head of the net as float32 numpy arrays (JAX
     `make_raw_forward_fn`, mcts.py:279): the source of GTP's kata-raw-nn and
     of the ownership reports. The search's EvalFn drops the auxiliary heads;
-    this serving path keeps them."""
+    this serving path keeps them. States on another device (a position the
+    GTP engine keeps on the host) are copied to the model's."""
+    dev = next(model.parameters()).device
 
     @torch.no_grad()
     def fn(states: GameState) -> dict:
-        out = model(*extract_features(cfg, states))
+        out = model(*extract_features(cfg, states.map(lambda x: x.to(dev))))
         return {k: v.float().cpu().numpy() for k, v in out.items()}
 
     return fn

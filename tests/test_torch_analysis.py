@@ -16,20 +16,16 @@ streamed query's interim reports depend on the wall clock in both
 packages: only their count rule is checked. One JAX engine serves the
 module, so each of its search shapes compiles once."""
 
-import dataclasses
 import functools
 import io
 import json
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from katacoffee_tpu.command.analysis import AnalysisEngine as JaxAnalysisEngine
-from katacoffee_tpu.dataio.checkpoints import load_exported_model as jax_load
-from katacoffee_tpu.nn.model import CoffeeNet as JaxNet
 from katacoffee_tpu.search import mcts as JM
 from katacoffee_tpu.search.params import SearchParams as JaxParams
 from katacoffee_tpu_torch.command.analysis import AnalysisEngine
@@ -39,8 +35,8 @@ from katacoffee_tpu_torch.game import io as gio
 from katacoffee_tpu_torch.game.board import GameConfig, init_state, legal_mask_flat, step
 from katacoffee_tpu_torch.search import mcts as TM
 from katacoffee_tpu_torch.search.params import SearchParams
-from test_torch_search import CFG, TINYNET
-from torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
+from test_torch_search import TINYNET
+from torch_parity import jax_exported_net, one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_SGFS = os.path.join(ROOT, "tests/goldens/ref_sgfs/ref_000.sgfs")
@@ -101,8 +97,7 @@ def script() -> list[dict]:
 def outputs() -> tuple[list[dict], list[dict], dict]:
     """(JAX's reports, the port's, facts of the script), each engine run
     once over the script."""
-    model, params, _, _ = jax_load(TINYNET)
-    jnet = JaxNet(dataclasses.replace(model.spec, dtype=jnp.float32), win_len=CFG.win_len)
+    jnet, params = jax_exported_net(TINYNET)
     tnet = load_exported_model(TINYNET, device="cpu", dtype=torch.float32)[0]
     queries, legal7 = script()
     text = "\n".join(json.dumps(q) for q in queries) + "\n"

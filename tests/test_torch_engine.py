@@ -7,6 +7,13 @@ its tree, the serving cache's hit and miss counts and the tree-averaged
 ownership. `search/timecontrols.py` and `game/io.py`, plain Python copied
 into the port, are compared function for function on a grid of inputs.
 
+The serving cache (`NNResultCache`, `make_cached_raw_forward_fn`) is held to
+JAX tests/test_serving_cache.py's three contracts: hits and misses with the
+rows returned exactly, a key that changes with the last move and with the
+order of the earlier moves, and LRU eviction at capacity 2; then one state
+sequence goes through JAX's cache and the port's, which count the same hits
+and misses after every call.
+
 The engines draw only in the move choice, at temperature 0 (the greedy
 move), so the two are the same computation. Floats of the analysis rows are
 held within 2e-4 (float32 sums of another order over a whole search, as
@@ -23,15 +30,14 @@ import numpy as np
 import pytest
 import torch
 
-from katacoffee_tpu.dataio.checkpoints import load_exported_model as jax_load
 from katacoffee_tpu.game import io as jio
-from katacoffee_tpu.nn.model import CoffeeNet as JaxNet
 from katacoffee_tpu.program.engine import Engine as JaxEngine
 from katacoffee_tpu.search import mcts as JM
 from katacoffee_tpu.search import ownership as jown
 from katacoffee_tpu.search import timecontrols as jtc
 from katacoffee_tpu.search.params import SearchParams as JaxParams
 from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
+from katacoffee_tpu_torch.game import board as TB
 from katacoffee_tpu_torch.game import io as tio
 from katacoffee_tpu_torch.program.engine import Engine
 from katacoffee_tpu_torch.search import mcts as TM
@@ -39,7 +45,7 @@ from katacoffee_tpu_torch.search import ownership as town
 from katacoffee_tpu_torch.search import timecontrols as ttc
 from katacoffee_tpu_torch.search.params import SearchParams
 from test_torch_search import CFG, TCFG, TINYNET
-from torch_parity import one_torch_thread, torch_tree  # noqa: F401 (autouse fixture)
+from torch_parity import jax_exported_net, jax_states, one_torch_thread, torch_tree  # noqa: F401 (autouse fixture)
 
 VISITS = 32
 KW = dict(rootSymmetryPruning=True)
@@ -48,8 +54,7 @@ KW = dict(rootSymmetryPruning=True)
 @functools.lru_cache(maxsize=None)
 def _nets():
     """(JAX net, params, the port's net), float32."""
-    model, params, _, _ = jax_load(TINYNET)
-    jnet = JaxNet(dataclasses.replace(model.spec, dtype=jnp.float32), win_len=CFG.win_len)
+    jnet, params = jax_exported_net(TINYNET)
     return jnet, params, load_exported_model(TINYNET, device="cpu", dtype=torch.float32)[0]
 
 
@@ -156,6 +161,123 @@ def test_nn_result_cache_counts_and_heads_match_jax():
             np.testing.assert_allclose(tout[k], np.asarray(jout[k]), atol=1e-5, rtol=0, err_msg=k)
         assert (tcache.hits, tcache.misses) == (jcache.hits, jcache.misses), idx
     assert (tcache.hits, tcache.misses) == (4, 5)
+
+
+def _cache_states(actions_list):
+    """The port's states on the CPU, one row for each action prefix, each
+    reached from the empty board."""
+    rows = []
+    for actions in actions_list:
+        st = TB.init_state(TCFG, 1, device="cpu")
+        for a in actions:
+            st = TB.step(TCFG, st, torch.tensor([a]))
+        rows.append(st)
+    return TB.GameState(*(torch.cat(f) for f in zip(*rows)))
+
+
+def _with_ring(states, edits):
+    """`states` with entries of the recent-move ring replaced: edits maps
+    (row, slot) to a spot."""
+    ring = states.recent_spots.clone()
+    for (row, slot), spot in edits.items():
+        ring[row, slot] = spot
+    return states._replace(recent_spots=ring)
+
+
+def _fake_forward(calls):
+    """A forward that records its batch sizes and returns heads computed
+    from the position (numpy, as the raw forwards return them)."""
+    def forward(states):
+        calls.append(int(states.board.shape[0]))
+        s = np.asarray(states.board).sum(axis=(1, 2)).astype(np.float32)
+        return {"policy_logits": np.tile(s[:, None], (1, TCFG.policy_size)),
+                "value_logits": np.tile(s[:, None], (1, 3))}
+
+    return forward
+
+
+def test_cache_hits_and_exactness():
+    calls = []
+    cache = TM.NNResultCache(_fake_forward(calls), capacity=8)
+    st = _cache_states([[0], [1], [2]])
+    out1 = cache(st)
+    assert cache.misses == 3 and cache.hits == 0 and calls == [3]
+    out2 = cache(st)  # every row hits: no forward
+    assert calls == [3] and cache.hits == 3
+    for k in out1:
+        np.testing.assert_array_equal(out1[k], out2[k])
+
+    # the same stones and another last move: another key (the ring's slot 0
+    # is the last move; built directly, since the line rule fixes the order)
+    base = _cache_states([[0, 26]])
+    st_a, st_b = _with_ring(base, {(0, 0): 1}), _with_ring(base, {(0, 0): 0})
+    assert torch.equal(st_a.board, st_b.board)
+    cache(st_a)
+    n_calls = len(calls)
+    cache(st_b)
+    assert len(calls) == n_calls + 1, "another last move must miss"
+
+    # the same stones and last move, the earlier moves in another order:
+    # the features read recent moves 1-4, so another key
+    st_c, st_d = _with_ring(st_a, {(0, 1): 5, (0, 2): 7}), _with_ring(st_a, {(0, 1): 7, (0, 2): 5})
+    cache(st_c)
+    n_calls = len(calls)
+    cache(st_d)
+    assert len(calls) == n_calls + 1, "another history order must miss"
+
+
+def test_cache_lru_eviction():
+    cache = TM.NNResultCache(lambda states: {"x": np.zeros((states.board.shape[0], 1))}, capacity=2)
+    s0, s1, s2 = _cache_states([[0]]), _cache_states([[1]]), _cache_states([[2]])
+    cache(s0)
+    cache(s1)
+    cache(s0)  # s0 becomes the most recent
+    cache(s2)  # evicts s1, the least recent
+    m = cache.misses
+    cache(s0)
+    assert cache.misses == m  # s0 is still cached
+    cache(s1)
+    assert cache.misses == m + 1  # s1 was evicted
+
+
+def test_cached_raw_forward_is_the_direct_forward():
+    """The tiny net behind the cache: the cached rows bit-equal to the
+    direct forward's, the second query served from the host."""
+    tnet = _nets()[2]
+    direct = TM.make_raw_forward_fn(TCFG, tnet)
+    cached = TM.make_cached_raw_forward_fn(TCFG, tnet)
+    st = _cache_states([[3], [7]])
+    want = direct(st)
+    got1, got2 = cached(st), cached(st)
+    assert cached.hits == 2 and cached.misses == 2
+    for k in want:
+        np.testing.assert_array_equal(want[k], got1[k])
+        np.testing.assert_array_equal(got1[k], got2[k])
+
+
+def test_cache_counts_match_jax_on_one_state_sequence():
+    """One sequence of batches, with ring variants and evictions at
+    capacity 2, through JAX's cache and the port's: the same hits and
+    misses after every call, the same rows."""
+    jcalls, tcalls = [], []
+    jcache = JM.NNResultCache(_fake_forward(jcalls), capacity=2)
+    tcache = TM.NNResultCache(_fake_forward(tcalls), capacity=2)
+    base = _cache_states([[0, 26], [1], [2]])
+    variants = [base, _with_ring(base, {(0, 0): 1}), _with_ring(base, {(0, 1): 5, (0, 2): 7}),
+                _with_ring(base, {(0, 1): 7, (0, 2): 5})]
+
+    def rows(v, idx):
+        return variants[v].map(lambda x: x[list(idx)])
+
+    sequence = [(0, [0]), (0, [0]), (0, [1, 2]), (1, [0]), (0, [0]), (2, [0]), (3, [0]), (2, [0]), (0, [2, 1]),
+                (0, [1]), (0, [0, 1]), (3, [0])]
+    for v, idx in sequence:
+        st = rows(v, idx)
+        jout, tout = jcache(jax_states(st)), tcache(st)
+        assert (tcache.hits, tcache.misses) == (jcache.hits, jcache.misses), (v, idx)
+        for k in jout:
+            np.testing.assert_array_equal(tout[k], np.asarray(jout[k]))
+    assert tcalls == jcalls and tcache.hits > 0 and tcache.misses > tcache.hits
 
 
 def test_tree_ownership_matches_jax():

@@ -32,7 +32,6 @@ import numpy as np
 import pytest
 import torch
 
-from katacoffee_tpu.dataio.checkpoints import load_exported_model as jax_load
 from katacoffee_tpu.game import board as JB
 from katacoffee_tpu.game import jitted
 from katacoffee_tpu.nn.model import CoffeeNet as JaxNet
@@ -42,7 +41,7 @@ from katacoffee_tpu_torch.dataio.checkpoints import load_exported_model
 from katacoffee_tpu_torch.game import board as TB
 from katacoffee_tpu_torch.search import mcts as TM
 from katacoffee_tpu_torch.search.params import SearchParams
-from torch_parity import one_torch_thread, torch_tree  # noqa: F401 (autouse fixture)
+from torch_parity import jax_exported_net, one_torch_thread, torch_tree  # noqa: F401 (autouse fixture)
 
 CFG = JB.GameConfig(5, 5, 4)
 TCFG = TB.GameConfig(5, 5, 4)
@@ -83,8 +82,7 @@ def _torch_roots(jroots):
 def _evals(name):
     if name == "uniform":
         return JM.uniform_eval_fn(CFG), TM.uniform_eval_fn(TCFG)
-    model, params, _, _ = jax_load(name)
-    jnet = JaxNet(dataclasses.replace(model.spec, dtype=jnp.float32), win_len=CFG.win_len)
+    jnet, params = jax_exported_net(name)
     tnet = load_exported_model(name, device="cpu", dtype=torch.float32)[0]
     return JM.make_nn_eval_fn(CFG, jnet, params), TM.make_nn_eval_fn(TCFG, tnet)
 
@@ -279,7 +277,7 @@ def test_eval_symmetries_raise():
 
 @functools.lru_cache(maxsize=None)
 def _tinynets():
-    model, params, _, _ = jax_load(TINYNET)
+    model, params = jax_exported_net(TINYNET)
     return model, params, load_exported_model(TINYNET, device="cpu", dtype=torch.float32)[0]
 
 

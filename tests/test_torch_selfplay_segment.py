@@ -122,13 +122,15 @@ def port_settings(settings):
     return TA.SelfplaySettings(**dataclasses.asdict(settings))
 
 
-def run_both(jev, tev, settings, jstates, key, num_moves, **pools):
+def run_both(jev, tev, settings, jstates, key, num_moves, cfgs=(CFG, TCFG), **pools):
     """JAX's segment (jitted) and the port's with the derived draws on the
     CPU. `pools` holds JAX startpos_pool / hintpos_pool / fork_pool; the
-    port gets them converted. Returns (JAX result, port result, the port's
-    search tree of each move)."""
+    port gets them converted; `cfgs` holds the board (JAX's GameConfig, the
+    port's). Returns (JAX result, port result, the port's search tree of
+    each move)."""
+    jcfg, tcfg = cfgs
     batch = jstates.board.shape[0]
-    seg = jax.jit(lambda s, e, k, p: JA.run_selfplay_segment(CFG, JSP, settings, jev, s, e, k, num_moves, **p))
+    seg = jax.jit(lambda s, e, k, p: JA.run_selfplay_segment(jcfg, JSP, settings, jev, s, e, k, num_moves, **p))
     with recorded_gamma() as calls:
         jout = jax.block_until_ready(seg(jstates, jnp.zeros((batch,), jnp.int32), key, pools))
         jax.effects_barrier()
@@ -138,7 +140,7 @@ def run_both(jev, tev, settings, jstates, key, num_moves, **pools):
             tpools[name] = TF.ForkPool(torch_states(pool.states), to_torch(pool.valid))
         else:
             tpools[name] = (torch_states(pool[0]),) + tuple(to_torch(x) for x in pool[1:])
-    draws = segment_draws(CFG, JSP, key, batch, num_moves, gamma_table(calls),
+    draws = segment_draws(jcfg, JSP, key, batch, num_moves, gamma_table(calls),
                           start_k=len(pools["startpos_pool"][1]) if "startpos_pool" in pools else 0,
                           hint_k=len(pools["hintpos_pool"][1]) if "hintpos_pool" in pools else 0)
     trees = []
@@ -150,7 +152,7 @@ def run_both(jev, tev, settings, jstates, key, num_moves, **pools):
 
     TM.policy_target = recording
     try:
-        tout = TA.run_selfplay_segment(TCFG, TSP, port_settings(settings), tev, torch_states(jstates),
+        tout = TA.run_selfplay_segment(tcfg, TSP, port_settings(settings), tev, torch_states(jstates),
                                        torch.zeros((batch,), dtype=torch.int64), num_moves, device="cpu",
                                        draws=draws, **tpools)
     finally:

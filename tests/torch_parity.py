@@ -17,6 +17,7 @@ record what it returns (through a debug callback, which runs under jit), and
 the key it was called with is checked against the chain."""
 
 import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -43,22 +44,29 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+_GAMMA_SINKS = []  # the lists of the open recorded_gamma blocks
+
+
 @contextlib.contextmanager
 def recorded_gamma():
     """Wraps jax.random.gamma; yields the list of (key, sample) numpy pairs
-    of its calls, recorded when they run (also under jit)."""
+    of its calls, recorded when they run (also under jit, and by a function
+    compiled inside an earlier block, whose callback writes to the list of
+    the block open when it runs)."""
     calls = []
     orig = jax.random.gamma
 
     def gamma(key, a, *args, **kw):
         out = orig(key, a, *args, **kw)
-        jax.debug.callback(lambda k, o: calls.append((np.asarray(k), np.asarray(o))), key, out)
+        jax.debug.callback(lambda k, o: _GAMMA_SINKS[-1].append((np.asarray(k), np.asarray(o))), key, out)
         return out
 
     jax.random.gamma = gamma
+    _GAMMA_SINKS.append(calls)
     try:
         yield calls
     finally:
+        _GAMMA_SINKS.pop()
         jax.random.gamma = orig
 
 
@@ -78,15 +86,23 @@ def _gamma_draw(calls, i, key):
     return torch.from_numpy(calls[i][1].copy())
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted_search(cfg, jsp, jev, visits, max_nodes):
+    """JAX `run_search` with `with_diag`, jitted once for each
+    configuration, so that the cases of a file that share one compile it
+    once (the roots' shapes and the reuse arguments' structure are part of
+    the jitted function's own cache key)."""
+    return jax.jit(lambda r, k, kw: JM.run_search(cfg, jsp, jev, r, visits, k, max_nodes=max_nodes, with_diag=True,
+                                                  **kw))
+
+
 def jax_search(cfg, jsp, jev, jroots, visits, key, max_nodes=None, **reuse):
     """JAX `run_search` with `with_diag`, jitted, and the `TM.RootDraws`
     that reproduce its root draws in the port. `reuse` holds reuse_tree,
     reuse_actions, reuse_ok."""
     B = jroots.board.shape[0]
     with recorded_gamma() as calls:
-        search = jax.jit(lambda r, k, kw: JM.run_search(cfg, jsp, jev, r, visits, k, max_nodes=max_nodes,
-                                                        with_diag=True, **kw))
-        jtree, diag = jax.block_until_ready(search(jroots, key, reuse))
+        jtree, diag = jax.block_until_ready(_jitted_search(cfg, jsp, jev, visits, max_nodes)(jroots, key, reuse))
         jax.effects_barrier()
     k_init, _ = jax.random.split(key)
     noise = jsp.rootNoiseEnabled
@@ -150,20 +166,22 @@ def torch_tree(jtree):
     return TM.Tree(**fields)
 
 
+def jax_states(tstates):
+    """The port's GameState batch as JAX's (the JAX package's dtypes)."""
+    return JM.GameState(*(
+        jnp.asarray(x.numpy().astype(np.uint32 if name == "stone_hash" else
+                                     np.int32 if x.dtype == torch.int64 else x.numpy().dtype))
+        for name, x in tstates._asdict().items()
+    ))
+
+
 def jax_tree(ttree):
     """The port's Tree as a JAX Tree (the JAX package's dtypes)."""
-    def states(s):
-        return JM.GameState(*(
-            jnp.asarray(x.numpy().astype(np.uint32 if name == "stone_hash" else
-                                         np.int32 if x.dtype == torch.int64 else x.numpy().dtype))
-            for name, x in s._asdict().items()
-        ))
-
     fields = {}
     for name in TM.Tree._fields:
         x = getattr(ttree, name)
         if name == "states":
-            fields[name] = states(x)
+            fields[name] = jax_states(x)
         elif name == "sit_hash":
             fields[name] = jnp.asarray(x.numpy().astype(np.uint32))
         elif x.dtype == torch.int64:
